@@ -282,5 +282,42 @@ class Settings:
         return s
 
 
+def bench_settings() -> Settings:
+    """The JAX bench's configuration (bench.py:51-69) with loop closing
+    off: KITTI intrinsics at 1241x376, 512 features, 8192 landmarks,
+    window 16, 8 FAST octaves, LK 11x11 / 3 levels (4 for stereo) / 30
+    iterations."""
+    s = Settings()
+    s.max_features = 512
+    s.max_landmarks = 8192
+    s.min_init_landmarks = 150
+    s.tracking_good = 120
+    s.n_init_features = 512
+    s.n_new_features = 512
+    s.loop_closing_open = False
+    return s
+
+
+def robotcar_xb3_wide_settings() -> Settings:
+    """The bench's capacities (bench_settings) at the camera geometry of
+    the Oxford RobotCar Dataset's Bumblebee XB3 wide-baseline stereo pair
+    (Maddern et al., IJRR 2017): 1280x960 grayscale, ~0.24 m baseline,
+    16 Hz, intrinsics as the RobotCar SDK's models/stereo_wide_left.txt
+    lists them. Images are rectified, so no distortion.
+
+    Level 0 of its LK pyramid pads to 960x1280: four f32 planes take
+    19.7 MB, above the 12 MiB plane budget, so it runs kernel #2 (the
+    HBM-patch function); levels 1 and up take kernel #1 (ops/lk.py)."""
+    s = bench_settings()
+    cam = CameraConfig(fx=983.044006, fy=983.044006, cx=643.646973,
+                       cy=493.378998)
+    s.cam_left = cam
+    s.cam_right = dataclasses.replace(cam)
+    s.image_width, s.image_height = 1280, 960
+    s.baseline_fx = 0.24 * cam.fx
+    s.fps = 16.0
+    return s
+
+
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m

@@ -1,0 +1,251 @@
+"""Chunked engine: K frames per dispatch (port of `ssvio_tpu/engine.py`).
+
+The JAX engine makes the whole per-frame step (pyramid, seeded LK,
+pose-only LM, the status machine, keyframe insertion, stereo triangulation,
+sliding-window BA) one compiled program and scans it over a chunk of
+frames, with the status machine as `lax.cond` branches on the device:
+
+    carry = (pyramid of last frame, feature set, pose, rel motion,
+             map window, status)
+    carry, per_frame_outputs = lax.scan(step, carry, (imgs_l, imgs_r))
+
+torch has neither `lax.scan` nor `lax.cond`. Here the same step runs, in the
+same order, as a Python loop over the chunk's frames that branches on the
+status on the host (the port's ops already read small scalars there: the
+inlier count, the LM stop flags). What the chunk keeps from the JAX engine
+is its contract: the SLAM state stays on the device in an `EngineCarry`
+between chunks, the per-frame outputs stay on the device, and the host
+reads back ONE packed vector per chunk (`pack_readback`). CUDA graphs of
+the per-frame step are later work (ROADMAP Queue 1 #10).
+
+Loop closing is not ported (ROADMAP Queue 1 #12), so `FrameOut` carries no
+loop descriptors (`desc`/`dval` in the JAX package).
+"""
+
+from __future__ import annotations
+
+from typing import Callable, List, NamedTuple, Tuple
+
+import torch
+
+from ssvio_tpu_torch import frontend as fe
+from ssvio_tpu_torch import map as mapmod
+from ssvio_tpu_torch.ops import ba, se3
+
+
+class EngineCarry(NamedTuple):
+    """Everything the per-frame step needs from the previous frame."""
+    pyr_last: fe.Pyr
+    feat: fe.FeatState
+    T_cw: torch.Tensor        # [3, 4]
+    rel_motion: torch.Tensor  # [3, 4]
+    m: mapmod.MapState
+    status: int               # fe.INITING/TRACKING_GOOD/BAD/LOST (host)
+
+
+class FrameOut(NamedTuple):
+    """Per-frame outputs of a chunk, stacked over its K frames, on the
+    device. The scalars are read back through `pack_readback`; `feat`
+    stays on the device."""
+    T_cw: torch.Tensor        # [K, 3, 4] post-BA pose of the frame
+    status: torch.Tensor      # [K] int32 status AFTER the frame
+    n_inliers: torch.Tensor   # [K] int32
+    kf_flag: torch.Tensor     # [K] bool: a keyframe was inserted
+    kf_slot: torch.Tensor     # [K] int32 window slot of that keyframe (-1)
+    kf_gid: torch.Tensor      # [K] int32 global id of that keyframe (-1)
+    feat: fe.FeatState        # feature state after each frame, [K, ...]
+
+
+class _Frame(NamedTuple):
+    """One frame's outputs as `_step` leaves them: the pose, inlier count
+    and features on the device, the branch results on the host."""
+    T_cw: torch.Tensor
+    status: int
+    n_inliers: torch.Tensor
+    kf_slot: int              # -1: no keyframe
+    kf_gid: int
+    feat: fe.FeatState
+    ran_ba: bool
+
+
+class Engine:
+    """Runs chunks of the per-frame step on the frontend's device.
+    Stateless: all SLAM state lives in the EngineCarry the caller threads
+    through."""
+
+    def __init__(self, frontend: fe.Frontend, enable_backend: bool,
+                 mesh=None):
+        if mesh is not None:
+            raise NotImplementedError(
+                "Landmark-sharded BA over a device mesh is not ported to "
+                "ssvio_tpu_torch yet (ROADMAP Queue 1 #14)")
+        self.fe = frontend
+        self.s = frontend.s
+        self.enable_backend = enable_backend
+
+    # ------------------------------------------------------------------
+    def _step(self, carry: EngineCarry, img_l: torch.Tensor,
+              img_r: Callable[[], torch.Tensor]
+              ) -> Tuple[EngineCarry, _Frame]:
+        """One engine frame (JAX `Engine._step`, engine.py:116-237): track
+        on GOOD/BAD; one keyframe path for INITING and TRACKING_BAD, with
+        the init or steady detection budget and the init gate chosen per
+        frame; a rejected init reverts to the carried state; BA rides
+        steady keyframes only; LOST dead-ends (recovery is a host decision
+        between chunks, and needs loop closing). The one copy of the
+        per-frame status machine: `run_chunk` loops it over a chunk and
+        `System.run_step` runs it on one frame.
+
+        `img_r` returns the right image; it is called only on frames that
+        run the keyframe path, so run_step pads and uploads the right eye
+        only there.
+
+        Reference: FrontEnd::GrabSteroImage status dispatch
+        (frontend.cpp:49-67), SteroInit (:430-446), Track (:79-128),
+        InsertKeyFrame (:546-576) + Backend::OptimizeActiveMap
+        (backend.cpp:78-245)."""
+        f = self.fe
+        s = self.s
+        dev = f.device
+        # u8 frames (camera-native, 4x fewer bytes to upload) are promoted
+        # on the device; the right eye is undistorted only where it is used
+        pyr_l = f._build_pyramid(f._undistort_left(img_l.to(torch.float32)))
+        status = carry.status
+        is_init = status == fe.INITING
+        is_track = status in (fe.TRACKING_GOOD, fe.TRACKING_BAD)
+
+        # ---- tracking (only for GOOD/BAD; INITING/LOST pass through)
+        if is_track:
+            out = f._track_step(carry.pyr_last, pyr_l, carry.feat, carry.T_cw,
+                                carry.rel_motion, carry.m.lm_pos,
+                                carry.m.lm_valid, carry.m.lm_gid)
+            n_inl = int(out.n_inliers)
+            status_t = (fe.TRACKING_GOOD if n_inl > s.tracking_good
+                        else fe.TRACKING_BAD if n_inl > s.tracking_bad
+                        else fe.LOST)
+        else:
+            out = fe.TrackOut(carry.feat, carry.T_cw, carry.rel_motion,
+                              torch.zeros((), dtype=torch.int32, device=dev))
+            status_t = status
+        need_kf = is_init or (is_track and status_t == fe.TRACKING_BAD)
+
+        # ---- keyframe machinery (one path for init + steady)
+        feat_f, m_f, T_f = out.feat, carry.m, out.T_cw
+        rel_f = out.rel_motion
+        kf_slot = kf_gid = -1
+        ran_ba = False
+        if need_kf:
+            pyr_r = f._build_pyramid(
+                f._undistort_right(img_r().to(torch.float32)))
+            feat_in = (fe.empty_feat_state(s.max_features, dev) if is_init
+                       else out.feat)
+            T_in = se3.identity(device=dev) if is_init else out.T_cw
+            # init vs steady extractor budget (reference system.cpp:115-129)
+            budget = s.n_init_features if is_init else s.n_new_features
+            feat2, m2, slot, gid, n_created, n_stereo = f._keyframe_step(
+                pyr_l, pyr_r, feat_in, T_in, carry.m, budget=budget)
+            # init gates: enough stereo-matched features (init_good,
+            # reference frontend.cpp:433-437) AND enough triangulated
+            # landmarks (Min.Init.Landmark.Num, :452-488)
+            accept = (not is_init or (n_created >= s.min_init_landmarks
+                                      and n_stereo >= s.init_good))
+            if accept:
+                T2 = T_in
+                if self.enable_backend and not is_init:
+                    # sliding-window BA rides steady keyframes only (the
+                    # reference backend starts after init too)
+                    res = ba.local_ba(mapmod.ba_problem_from_map(m2), f._fx,
+                                      f._fy, f._cx, f._cy, f._baseline)
+                    m2 = mapmod.apply_ba_result(m2, res.kf_T_cw, res.lm_pos,
+                                                res.obs_valid)
+                    T2 = m2.kf_pose[slot]
+                    ran_ba = True
+                feat_f, m_f, T_f = feat2, m2, T2
+                kf_slot, kf_gid = slot, gid
+                if is_init:
+                    rel_f = se3.identity(device=dev)
+
+        # ---- the post-frame state (an init reject keeps the carried one)
+        kf_ok = kf_slot >= 0
+        status_f = ((fe.TRACKING_GOOD if kf_ok else fe.INITING) if is_init
+                    else status_t)
+        c2 = EngineCarry(pyr_l, feat_f, T_f, rel_f, m_f, status_f)
+        return c2, _Frame(T_f, status_f, out.n_inliers, kf_slot, kf_gid,
+                          feat_f, ran_ba)
+
+    # ------------------------------------------------------------------
+    def run_chunk(self, carry: EngineCarry, imgs_l: torch.Tensor,
+                  imgs_r: torch.Tensor):
+        """Run the per-frame step over [K, H, W] stereo stacks (u8 or f32)
+        on the device. Returns (carry, outs: FrameOut, packed: the f32
+        vector of pack_readback, n_ba: local BAs run)."""
+        frames: List[_Frame] = []
+        for k in range(imgs_l.shape[0]):
+            carry, fr = self._step(carry, imgs_l[k],
+                                   lambda k=k: imgs_r[k])
+            frames.append(fr)
+        dev = self.fe.device
+        host = torch.tensor([[fr.status, fr.kf_slot >= 0, fr.kf_slot,
+                              fr.kf_gid] for fr in frames],
+                            dtype=torch.int32).to(dev)
+        outs = FrameOut(
+            T_cw=torch.stack([fr.T_cw for fr in frames]),
+            status=host[:, 0],
+            n_inliers=torch.stack([fr.n_inliers.to(torch.int32)
+                                   for fr in frames]),
+            kf_flag=host[:, 1] > 0,
+            kf_slot=host[:, 2],
+            kf_gid=host[:, 3],
+            feat=fe.FeatState(*[torch.stack(v) for v in
+                                zip(*[fr.feat for fr in frames])]))
+        return (carry, outs, pack_readback(carry, outs),
+                sum(fr.ran_ba for fr in frames))
+
+
+PER_FRAME_PACK = 17          # 12 pose + status + n_inliers + kf_flag/slot/gid
+
+
+def pack_readback(carry: EngineCarry, outs: FrameOut) -> torch.Tensor:
+    """Flatten everything the host needs per chunk into ONE f32 vector on
+    the device, so the host makes a single device-to-host copy. Layout (the
+    JAX package's, engine.py:249-283):
+
+      [K*17]  per frame: T_cw (12) | status | n_inliers | kf_flag | kf_slot
+              | kf_gid
+      [1]     carry.status after the chunk
+      [W]     map.kf_gid   (window keyframe ids, for record refresh)
+      [W]     map.kf_valid
+      [12W]   map.kf_pose flattened
+
+    int fields ride as f32 (ids stay well under 2^24)."""
+    K = outs.T_cw.shape[0]
+    f32 = torch.float32
+    per = torch.cat([
+        outs.T_cw.reshape(K, 12),
+        outs.status[:, None].to(f32),
+        outs.n_inliers[:, None].to(f32),
+        outs.kf_flag[:, None].to(f32),
+        outs.kf_slot[:, None].to(f32),
+        outs.kf_gid[:, None].to(f32),
+    ], dim=1)
+    m = carry.m
+    tail = torch.cat([
+        torch.tensor([carry.status], dtype=f32).to(m.kf_pose.device),
+        m.kf_gid.to(f32),
+        m.kf_valid.to(f32),
+        m.kf_pose.reshape(-1),
+    ])
+    return torch.cat([per.reshape(-1), tail])
+
+
+def fresh_carry(settings, frontend: fe.Frontend,
+                m: mapmod.MapState) -> EngineCarry:
+    """Initial carry: INITING status, zero pyramid placeholder."""
+    dev = frontend.device
+    zero = torch.zeros((frontend.h, frontend.w), dtype=torch.float32,
+                       device=dev)
+    return EngineCarry(
+        pyr_last=frontend._build_pyramid(zero),
+        feat=fe.empty_feat_state(settings.max_features, dev),
+        T_cw=se3.identity(device=dev), rel_motion=se3.identity(device=dev),
+        m=m, status=fe.INITING)

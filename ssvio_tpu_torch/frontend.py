@@ -280,11 +280,3 @@ class Frontend:
                           octave=feat2.octave)
         return (feat3, m3, kf_slot, kf_gid, int(torch.sum(created)),
                 int(torch.sum(has_r)))
-
-    # the JAX package jits the steps above under these public names; here
-    # they run eagerly, so the public names are the same functions
-    undistort_left = _undistort_left
-    undistort_right = _undistort_right
-    build_pyramid = _build_pyramid
-    track_step = _track_step
-    keyframe_step = _keyframe_step

@@ -16,7 +16,8 @@ import numpy as np
 import torch
 
 from ssvio_tpu_torch import config
-from ssvio_tpu_torch.frontend import FeatState
+from ssvio_tpu_torch.engine import EngineCarry, FrameOut
+from ssvio_tpu_torch.frontend import FeatState, Pyr
 from ssvio_tpu_torch.map import MapState
 
 
@@ -47,6 +48,31 @@ def map_state(src: Any, device=None) -> MapState:
 def pose(T: Any, device=None) -> torch.Tensor:
     """A [3, 4] pose (T_cw or rel_motion) as a float32 tensor."""
     return torch.as_tensor(np.array(np.asarray(T), np.float32), device=device)
+
+
+def engine_carry(src: Any, device=None) -> EngineCarry:
+    """The chunked engine's carry (JAX `engine.EngineCarry`): the pyramid,
+    feature and map states as tensors, the status as a host int."""
+    pyr = _field(src, "pyr_last")
+    return EngineCarry(
+        pyr_last=Pyr(*[tuple(torch.as_tensor(np.array(np.asarray(a)),
+                                             device=device)
+                             for a in _field(pyr, f)) for f in Pyr._fields]),
+        feat=feat_state(_field(src, "feat"), device),
+        T_cw=pose(_field(src, "T_cw"), device),
+        rel_motion=pose(_field(src, "rel_motion"), device),
+        m=map_state(_field(src, "m"), device),
+        status=int(np.asarray(_field(src, "status"))))
+
+
+def frame_out(src: Any, device=None) -> FrameOut:
+    """A chunk's stacked per-frame outputs (JAX `engine.FrameOut`, whose
+    loop descriptors `desc`/`dval` the port does not carry)."""
+    fields = [f for f in FrameOut._fields if f != "feat"]
+    return FrameOut(
+        **{f: torch.as_tensor(np.array(np.asarray(_field(src, f))),
+                              device=device) for f in fields},
+        feat=feat_state(_field(src, "feat"), device))
 
 
 def settings(src: Any) -> config.Settings:

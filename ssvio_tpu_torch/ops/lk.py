@@ -4,22 +4,29 @@
 11x11 window, 3 pyramid levels, up to 30 iterations, eps 0.01, with
 initial-flow seeding (reference src/ssvio/frontend.cpp:156-166).
 
-Two level functions, as in the JAX package, and they are NOT the same
+Three level functions, as in the JAX package, and they are NOT the same
 function (ROADMAP Queue 3):
 - the patch-bounded path (`_track_level_xla`, the JAX package's XLA path):
   each keypoint samples from a fixed patch around its seed and freezes at
   the patch edge (margin 8);
-- the kernel semantics (`lk_cuda.lk_level`, the JAX package's VMEM Pallas
-  kernel): bounded only by the padded level.
+- kernel #1's semantics (`lk_cuda.lk_level`, the JAX package's VMEM Pallas
+  kernel): bounded only by the padded level;
+- kernel #2's semantics (`lk_patch_cuda.lk_patch`, the JAX package's
+  HBM-patch Pallas kernel): bounded by a 256-lane patch box at a (128,
+  8)-aligned origin. The JAX package takes it where kernel #1's four padded
+  planes exceed `PLANE_BUDGET_BYTES` (`uses_patch_kernel`).
 
 `LKParams.backend` picks one (`_track_level`):
-- "auto": the CUDA kernel for CUDA tensors, the patch-bounded path for
+- "auto": the CUDA kernels for CUDA tensors, the patch-bounded path for
   CPU tensors (JAX's "auto" takes XLA off the TPU);
-- "cuda": the CUDA kernel; raises for tensors that are not on a GPU;
+- "cuda": the CUDA kernels; raises for tensors that are not on a GPU;
 - "xla": the patch-bounded path;
-- "ref": the kernel's plain torch version `lk_cuda.lk_level_ref` (the
-  port's analogue of JAX's "pallas_interpret").
-A CUDA tensor never falls back from the kernel to a plain version.
+- "ref": the kernels' plain torch versions `lk_cuda.lk_level_ref` and
+  `lk_patch_cuda.lk_patch_ref` (the port's analogue of JAX's
+  "pallas_interpret").
+The kernel backends choose between kernel #1 and kernel #2 per level by
+the budget, as the JAX package does. A CUDA tensor never falls back from a
+kernel to a plain version.
 """
 
 from __future__ import annotations
@@ -28,15 +35,15 @@ from typing import List, NamedTuple, Tuple
 
 import torch
 
-from ssvio_tpu_torch.ops import lk_cuda
+from ssvio_tpu_torch.ops import lk_cuda, lk_patch_cuda
 from ssvio_tpu_torch.ops import pyramid as pyr_ops
 from ssvio_tpu_torch.ops import sampling
 
 # Plane budget of the JAX package's VMEM-resident kernel
 # (lk_pallas.VMEM_PLANE_BUDGET): above it JAX switches to the HBM-patch
-# kernel lk_level_pallas, whose bounds differ; that kernel is not ported yet
-# (ROADMAP Queue 2 #2), so the port raises there instead of silently
-# computing the other function.
+# kernel lk_level_pallas, whose bounds differ. On the card it is no memory
+# limit; it is the rule that picks which function a level computes, and
+# parity with the JAX package needs it.
 PLANE_BUDGET_BYTES = 12 << 20
 
 
@@ -119,30 +126,90 @@ def padded_dims(h: int, w: int) -> Tuple[int, int]:
     return max(-(-h // 8) * 8, 32), max(-(-w // 128) * 128, 256)
 
 
-def _track_level_kernel(img_prev, img_cur, gx, gy, pts_prev, pts_guess,
-                        valid, params: LKParams, level_fn):
-    """Kernel-semantics level (JAX `_track_level_pallas`, VMEM branch)."""
-    win = params.window
-    r = win // 2
-    h, w = img_cur.shape
+def uses_patch_kernel(h: int, w: int) -> bool:
+    """True where the JAX package takes the HBM-patch kernel for an [h, w]
+    level: kernel #1's four padded f32 planes exceed the budget."""
     hv, wv = padded_dims(h, w)
-    if 4 * hv * wv * 4 > PLANE_BUDGET_BYTES:
-        raise NotImplementedError(
-            f"LK level {h}x{w}: four padded planes exceed "
-            f"{PLANE_BUDGET_BYTES} B, where the JAX package takes the "
-            "HBM-patch kernel lk_level_pallas (ROADMAP Queue 2 #2, not "
-            "ported)")
-    frozen0 = (~valid | ~sampling.in_bounds(pts_guess, h, w, border=r + 1)) \
+    return 4 * hv * wv * 4 > PLANE_BUDGET_BYTES
+
+
+def _frozen0(pts_guess, valid, h, w, r) -> torch.Tensor:
+    return (~valid | ~sampling.in_bounds(pts_guess, h, w, border=r + 1)) \
         .to(torch.int32)[:, None]
-    pts_out, flag = level_fn(img_prev, gx, gy, img_cur,
-                             pts_prev.contiguous(), pts_guess.contiguous(),
-                             frozen0, win=win, iters=params.iters,
-                             eps=params.eps, min_eig=params.min_eig,
-                             padded_hw=(hv, wv))
-    ok = (flag[:, 0] > 0) & sampling.in_bounds(pts_out, h, w, border=1.0) \
+
+
+def _level_ok(flag, pts_out, pts_prev, img_prev, h, w) -> torch.Tensor:
+    return (flag[:, 0] > 0) & sampling.in_bounds(pts_out, h, w, border=1.0) \
         & sampling.in_bounds(pts_prev, img_prev.shape[0], img_prev.shape[1],
                              border=1.0)
-    return pts_out, ok
+
+
+def _track_level_kernel(img_prev, img_cur, gx, gy, pts_prev, pts_guess,
+                        valid, params: LKParams, level_fn):
+    """Kernel #1's level (JAX `_track_level_pallas`, VMEM branch)."""
+    win = params.window
+    h, w = img_cur.shape
+    pts_out, flag = level_fn(img_prev, gx, gy, img_cur,
+                             pts_prev.contiguous(), pts_guess.contiguous(),
+                             _frozen0(pts_guess, valid, h, w, win // 2),
+                             win=win, iters=params.iters,
+                             eps=params.eps, min_eig=params.min_eig,
+                             padded_hw=padded_dims(h, w))
+    return pts_out, _level_ok(flag, pts_out, pts_prev, img_prev, h, w)
+
+
+def patch_inputs(h: int, w: int, pts_prev: torch.Tensor,
+                 pts_guess: torch.Tensor, valid: torch.Tensor,
+                 params: LKParams):
+    """Kernel #2's per-keypoint inputs for an [h, w] level, as the JAX
+    wrapper computes them (`ssvio_tpu/ops/lk.py:174-212`).
+
+    Returns (args, kw, org_C): `args` = (tl_prev, tl_cur, localT, local0,
+    frozen0) for lk_patch / lk_patch_ref after the four planes, `kw` their
+    keyword arguments, and org_C [N, 2] float32 the search-patch origins
+    (pts_out = org_C + r + local_out)."""
+    win = params.window
+    r = win // 2
+    margin = params.margin
+    rup8 = lambda v: -(-v // 8) * 8
+    # patch footprints: +7 rows of slack so 8-aligned row origins still
+    # cover the window; x spans two 128-lane tiles at a 128-aligned origin;
+    # >= 32 rows (the TPU kernel's 32-row slab)
+    pty = max(rup8(win + 2 + 7), 32)
+    pcy = max(rup8(win + 2 * margin + 2 + 7), 32)
+    # tiny coarse levels are zero-padded so the patch footprint fits
+    hp = max(rup8(h), pcy)
+    wp = max(-(-w // 128) * 128, lk_patch_cuda.LANES)
+
+    def aligned_origin(tl, py):
+        ox = torch.clamp(torch.div(tl[:, 0], 128, rounding_mode="floor") * 128,
+                         0, wp - lk_patch_cuda.LANES)
+        oy = torch.clamp(torch.div(tl[:, 1], 8, rounding_mode="floor") * 8,
+                         0, hp - py)
+        return torch.stack([ox, oy], dim=-1).to(torch.int32)
+
+    org_T = aligned_origin(_int_floor(pts_prev) - r, pty)
+    localT = pts_prev - r - org_T.to(pts_prev.dtype)
+    rc = torch.nan_to_num(torch.round(pts_guess)).long()
+    tlc = torch.stack([rc[:, 0] - r, rc[:, 1] - r - margin], dim=-1)
+    org_C = aligned_origin(tlc, pcy)
+    org_Cf = org_C.to(pts_guess.dtype)
+    local0 = pts_guess - r - org_Cf
+    args = (org_T, org_C, localT.contiguous(), local0.contiguous(),
+            _frozen0(pts_guess, valid, h, w, r))
+    kw = dict(win=win, pty=pty, pcy=pcy, iters=params.iters, eps=params.eps,
+              min_eig=params.min_eig, padded_hw=(hp, wp))
+    return args, kw, org_Cf
+
+
+def _track_level_patch(img_prev, img_cur, gx, gy, pts_prev, pts_guess,
+                       valid, params: LKParams, patch_fn):
+    """Kernel #2's level (JAX `_track_level_pallas`, HBM-patch branch)."""
+    h, w = img_cur.shape
+    args, kw, org_C = patch_inputs(h, w, pts_prev, pts_guess, valid, params)
+    local_out, flag = patch_fn(img_prev, gx, gy, img_cur, *args, **kw)
+    pts_out = org_C + params.window // 2 + local_out
+    return pts_out, _level_ok(flag, pts_out, pts_prev, img_prev, h, w)
 
 
 def _track_level_xla(img_prev, img_cur, gx, gy, pts_prev, pts_guess, valid,
@@ -220,16 +287,18 @@ def _track_level(img_prev: torch.Tensor, img_cur: torch.Tensor,
     if backend == "xla" or (backend == "auto" and not img_cur.is_cuda):
         return _track_level_xla(img_prev, img_cur, gx, gy, pts_prev,
                                 pts_guess, valid, params)
-    if backend == "ref":
-        level_fn = lk_cuda.lk_level_ref
-    else:                                   # "auto" or "cuda"
-        if not img_cur.is_cuda:
-            raise RuntimeError(
-                "LK backend 'cuda' needs CUDA tensors; got tensors on "
-                f"{img_cur.device} (the kernel has no CPU fallback)")
-        level_fn = lk_cuda.lk_level
-    return _track_level_kernel(img_prev, img_cur, gx, gy, pts_prev,
-                               pts_guess, valid, params, level_fn)
+    if backend != "ref" and not img_cur.is_cuda:   # "auto" / "cuda"
+        raise RuntimeError(
+            "LK backend 'cuda' needs CUDA tensors; got tensors on "
+            f"{img_cur.device} (the kernel has no CPU fallback)")
+    if uses_patch_kernel(*img_cur.shape):
+        return _track_level_patch(
+            img_prev, img_cur, gx, gy, pts_prev, pts_guess, valid, params,
+            lk_patch_cuda.lk_patch_ref if backend == "ref"
+            else lk_patch_cuda.lk_patch)
+    return _track_level_kernel(
+        img_prev, img_cur, gx, gy, pts_prev, pts_guess, valid, params,
+        lk_cuda.lk_level_ref if backend == "ref" else lk_cuda.lk_level)
 
 
 def track(pyr_prev: List[torch.Tensor], pyr_cur: List[torch.Tensor],

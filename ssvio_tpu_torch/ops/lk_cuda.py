@@ -2,8 +2,10 @@
 its ctypes binding, and its plain torch version.
 
 Replaces the TPU kernel `ssvio_tpu/ops/lk_pallas.py::lk_level_vmem`
-(body `_make_serial_vmem_kernel`, sampler `_make_vmem_kernel`), the one
-Pallas kernel on the tracking + keyframe path. Both compute, per keypoint:
+(body `_make_serial_vmem_kernel`, sampler `_make_vmem_kernel`), the Pallas
+kernel of every LK level whose padded planes fit the 12 MiB budget
+(`ops/lk.py`; larger levels take `ops/lk_patch_cuda.py`). Both compute, per
+keypoint:
 bilinear 11x11 template and Sobel windows at `pts_prev` (the window moves
 rigidly, so it shares one fractional offset), a min-eigenvalue gate on the
 2x2 structure tensor, then up to `iters` forward-additive steps with
@@ -20,8 +22,9 @@ a 5-step shuffle reduction and a 2x2 solve. The design keeps everything
 that does not move in registers: one warp per keypoint, each lane holding
 T, Gx and Gy for its <= 4 of the 121 window pixels for the whole loop, and
 `__shfl_xor_sync` sums that leave bit-identical totals in every lane, so
-the per-keypoint `while` loop stays warp-uniform. wgmma, TMA and batching
-levels or tracks into one launch are later work.
+the per-keypoint `while` loop stays warp-uniform (the solve is shared with
+kernel #2 in `csrc/lk_klt.cuh`). wgmma, TMA and batching levels or tracks
+into one launch are later work.
 
 `lk_level` launches the kernel for CUDA tensors (or raises) and takes the
 plain version `lk_level_ref` only for CPU tensors. `LAUNCHES` counts kernel
@@ -31,78 +34,25 @@ launches; nothing else increments it.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-import time
-from pathlib import Path
 from typing import Tuple
 
 import torch
 import torch.nn.functional as F
 
+from ssvio_tpu_torch.ops import _nvcc
+from ssvio_tpu_torch.ops._nvcc import MAX_WINDOW_PIXELS, check
+
 LAUNCHES = 0          # kernel launches made by lk_level (CUDA tensors only)
 
-_SRC = Path(__file__).resolve().parents[1] / "csrc" / "lk_level.cu"
-_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ssvio_tpu_torch"
-_NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-_CUDA_ROOTS = ("/usr/local/cuda",)   # searched after PATH and $CUDA_HOME
-MAX_WINDOW_PIXELS = 128   # 4 pixels per lane of one warp (csrc/lk_level.cu)
+SRC = _nvcc.CSRC / "lk_level.cu"
 
 _lib = None
-build_info: dict = {}     # path, seconds, ptxas log of the loaded library
-
-
-def _find_nvcc() -> str:
-    cands = [shutil.which("nvcc")]
-    for root in (os.environ.get("CUDA_HOME"), *_CUDA_ROOTS):
-        if root:
-            cands.append(os.path.join(root, "bin", "nvcc"))
-    for c in cands:
-        if c and os.path.isfile(c) and os.access(c, os.X_OK):
-            return c
-    raise RuntimeError(
-        "nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin): the LK "
-        "CUDA kernel (csrc/lk_level.cu) cannot be built")
-
-
-def build() -> Path:
-    """Compile csrc/lk_level.cu into build/ssvio_tpu_torch/, keyed on a hash
-    of the source and flags (a stale library is never loaded). Returns the
-    library path; raises if nvcc is missing or fails."""
-    src = _SRC.read_bytes()
-    key = hashlib.sha256(src + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = _BUILD_DIR / f"liblk_level_{key}.so"
-    if out.exists():
-        build_info.update(path=str(out), seconds=0.0, log="(cached)")
-        return out
-    nvcc = _find_nvcc()
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-    os.close(fd)
-    t0 = time.perf_counter()
-    try:
-        proc = subprocess.run([nvcc, *_NVCC_FLAGS, "-o", tmp, str(_SRC)],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}) on {_SRC}:\n"
-                               f"{proc.stdout}\n{proc.stderr}")
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    build_info.update(path=str(out), seconds=time.perf_counter() - t0,
-                      log=(proc.stdout + proc.stderr).strip())
-    return out
 
 
 def _library():
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
+        lib = ctypes.CDLL(str(_nvcc.build(SRC)))
         fn = lib.ssvio_lk_level
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
                        + [ctypes.c_void_p] * 5
@@ -111,17 +61,6 @@ def _library():
         fn.restype = ctypes.c_int
         _lib = lib
     return _lib
-
-
-def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
 
 
 def lk_level(img_prev: torch.Tensor, gx: torch.Tensor, gy: torch.Tensor,
@@ -152,10 +91,10 @@ def lk_level(img_prev: torch.Tensor, gx: torch.Tensor, gy: torch.Tensor,
     n = pts_prev.shape[0]
     for name, t in (("img_prev", img_prev), ("gx", gx), ("gy", gy),
                     ("img_cur", img_cur)):
-        _check(name, t, torch.float32, (H, W), dev)
-    _check("pts_prev", pts_prev, torch.float32, (n, 2), dev)
-    _check("pts_guess", pts_guess, torch.float32, (n, 2), dev)
-    _check("frozen0", frozen0, torch.int32, (n, 1), dev)
+        check(name, t, torch.float32, (H, W), dev)
+    check("pts_prev", pts_prev, torch.float32, (n, 2), dev)
+    check("pts_guess", pts_guess, torch.float32, (n, 2), dev)
+    check("frozen0", frozen0, torch.int32, (n, 1), dev)
     if win < 1 or win * win > MAX_WINDOW_PIXELS:
         raise ValueError(f"lk_level: win={win} outside 1..11 "
                          f"(win*win <= {MAX_WINDOW_PIXELS})")

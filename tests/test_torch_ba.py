@@ -18,6 +18,7 @@ from ssvio_tpu_torch import interop
 from ssvio_tpu_torch.ops import ba as ba_t
 from ssvio_tpu_torch.ops import se3 as se3_t
 from test_ba import BASELINE, CX, CY, FX, FY, build_ba_problem, project, synth_scene
+from test_torch_ops import one_torch_thread  # noqa: F401 (autouse)
 
 POSE_TOL = 1e-4
 LM_TOL_M = 1e-3

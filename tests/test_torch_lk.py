@@ -24,8 +24,8 @@ from ssvio_tpu.ops import lk as lk_j
 from ssvio_tpu.ops import lk_pallas
 from ssvio_tpu.ops import pyramid as pyramid_j
 from ssvio_tpu_torch.ops import lk as lk_t
-from ssvio_tpu_torch.ops import lk_cuda
-from test_torch_ops import _texture
+from ssvio_tpu_torch.ops import _nvcc, lk_cuda, lk_patch_cuda
+from test_torch_ops import _texture, one_torch_thread  # noqa: F401
 
 POS_ATOL = 0.02          # px, see module docstring
 H, W, N = 192, 256, 24
@@ -163,11 +163,11 @@ def test_cuda_dispatch_raises_and_never_falls_back(monkeypatch, tmp_path):
     # no nvcc reachable: building the kernel library raises
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.delenv("CUDA_HOME", raising=False)
-    monkeypatch.setattr(lk_cuda, "_CUDA_ROOTS", ())
-    monkeypatch.setattr(lk_cuda, "_BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_nvcc, "_CUDA_ROOTS", ())
+    monkeypatch.setattr(_nvcc, "_BUILD_DIR", tmp_path / "build")
     monkeypatch.setattr(lk_cuda, "_lib", None)
     with pytest.raises(RuntimeError, match="nvcc not found"):
-        lk_cuda.build()
+        _nvcc.build(lk_cuda.SRC)
     # unported kernel flavors raise rather than run 'serial'
     for kern in ("sw", "ymm", "pkmm", "mm", "mm_f32"):
         with pytest.raises(NotImplementedError, match="Queue 2"):
@@ -188,13 +188,31 @@ def test_wrapper_on_cpu_is_the_plain_version():
         assert torch.equal(x, y)
 
 
-def test_oversized_level_raises_not_ported():
-    """Above the 12 MiB plane budget JAX takes the HBM-patch kernel
-    (lk_level_pallas, not ported): the kernel semantics raise there."""
+def test_oversized_level_takes_patch_path(monkeypatch):
+    """Above the 12 MiB plane budget the kernel backends take kernel #2's
+    function (lk_patch_cuda; JAX: the HBM-patch kernel lk_level_pallas):
+    level 0 of a 1280x960 camera does, its level 1 and a KITTI level 0 do
+    not. The plain-version backend "ref" reaches lk_patch_ref there."""
+    assert lk_t.uses_patch_kernel(960, 1280)
+    assert not lk_t.uses_patch_kernel(480, 640)
+    assert not lk_t.uses_patch_kernel(384, 1248)
+    calls = []
+    real = lk_patch_cuda.lk_patch_ref
+
+    def spy(*a, **k):
+        calls.append(k["padded_hw"])
+        return real(*a, **k)
+
+    monkeypatch.setattr(lk_patch_cuda, "lk_patch_ref", spy)
     big = torch.zeros((1088, 1024))
     p = torch.full((4, 2), 100.0)
-    with pytest.raises(NotImplementedError, match="Queue 2 #2"):
+    out, ok = lk_t._track_level(big, big, big, big, p, p,
+                                torch.ones(4, dtype=torch.bool),
+                                lk_t.LKParams(backend="ref"))
+    assert calls == [(1088, 1024)]
+    assert out.shape == (4, 2) and not bool(ok.any())     # flat: gate fails
+    # CPU tensors under "cuda" still raise rather than take a plain version
+    with pytest.raises(RuntimeError, match="needs CUDA tensors"):
         lk_t._track_level(big, big, big, big, p, p,
                           torch.ones(4, dtype=torch.bool),
-                          lk_t.LKParams(backend="ref"))
-
+                          lk_t.LKParams(backend="cuda"))

@@ -30,6 +30,7 @@ from ssvio_tpu_torch import interop
 from ssvio_tpu_torch import map as map_t
 from ssvio_tpu_torch.ops import se3 as se3_t
 from test_system_e2e import BASELINE, CX, CY, FX, FY, H, W, small_settings
+from test_torch_ops import one_torch_thread  # noqa: F401 (autouse)
 
 PX_TOL = 0.02
 POSE_TOL = 1e-4

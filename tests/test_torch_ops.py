@@ -45,6 +45,19 @@ def _twists(seed, n=64):
     return xi
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op torch thread per test process (the port's test files
+    import this fixture). The suite runs under xdist with a worker per
+    core, and the port's eager ops are small: with torch's default of one
+    thread per core in every worker, the threads contend for the cores and
+    the port's tests run about ten times slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _texture(seed, h, w, sigma=2.0):
     """Smooth random texture in [0, 255] (separable Gaussian of noise)."""
     rng = np.random.default_rng(seed)
