@@ -5,9 +5,9 @@
 Phases (any failure raises and exits non-zero; nothing is caught):
 1. device: a CUDA device is required; prints nvidia-smi's name and power
    limit line.
-2. build: compiles both LK level kernels from the checkout's sources
-   (ssvio_tpu_torch/csrc/lk_level.cu and lk_patch.cu), one nvcc each, both
-   started together.
+2. build: compiles the five LK kernel sources of the checkout
+   (ssvio_tpu_torch/csrc/lk_level.cu, lk_patch.cu, lk_level_sw.cu,
+   lk_level_pk.cu, lk_level_mm.cu), one nvcc each, all started together.
 3. kernels vs plain: for the KITTI bench configuration (1241x376) and the
    RobotCar XB3 wide configuration (1280x960), renders a scene on the card,
    detects 512 keypoints as the keyframe step does, and at every level of
@@ -17,13 +17,21 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    version on the same inputs, for a temporal pair and a stereo pair, coarse
    to fine as lk.track seeds them. Flags must be equal and converged
    positions within POS_TOL_PX; both are timed with CUDA events.
+3b. flavours vs plain: at every KITTI level of phase 3, on the same inputs,
+   each `Settings.lk_kernel` flavour's kernel (sw: #3, ymm and pkmm: #4,
+   one function, run once; mm and mm_f32: #5; ops/lk_variants_cuda.py)
+   against its plain version, with phase 3's checks (for mm,
+   MM_MIN_AGREE_SHARE replaces the cap share and the converged tolerance,
+   and the tight checks of _mm_tight and their control are added) and
+   times, and at level 0 its device time from torch.profiler; prints each
+   flavour's largest position difference from kernel #1.
 4. the run_step path: System(device="cuda") with the bench configuration
    (512 features, 8192 landmarks, window 16, 8 FAST octaves, LK 11x11 / 3
    levels / 30 iterations, local BA on, loop closing off) runs 96 frames of
    the bench's straight sequence (world seed 4, 0.6 m per frame), rendered
    on the card, through run_step. The run must never go LOST, make >= 2
    keyframes and >= 1 local BA, launch kernel #1 exactly as often as the
-   statuses imply (and kernel #2 never), and keep ATE under 0.5 m.
+   statuses imply (and no other kernel), and keep ATE under 0.5 m.
 5. the chunk path: the RobotCar configuration runs 96 frames of a straight
    drive down a street (SCENES; rendered on the card, handed over as host
    uint8 as a camera's are) in chunks of 32
@@ -31,9 +39,19 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    bench.py drives the JAX package, then finish(). Same checks as phase 4
    with both kernels' launch counts; the same frames through run_step must
    give the same statuses and keyframes and trajectories within 1e-3 m.
-6. prints the kernel table as one JSON line, then the result line.
+6. the flavours: phase 4's frames through run_step once for each of sw,
+   ymm, pkmm, mm and mm_f32 (bench configuration with lk_kernel set). Same
+   checks as phase 4, with the flavour's kernel launched as often as the
+   statuses imply and kernel #1 never, and pkmm's run equal to ymm's;
+   prints ms per frame and the status and position differences from phase
+   4's serial run.
+7. prints the kernel table as one JSON line (with each kernel's bound,
+   bound_ms: the plane pixels the level needs over the memory rate, or
+   its operations over the peak rate, BOUND_*), then the result line.
 """
 
+import dataclasses
+import functools
 import json
 import subprocess
 import sys
@@ -49,6 +67,7 @@ from ssvio_tpu_torch.config import (Settings, bench_settings,
 from ssvio_tpu_torch.dataio import synthetic, synthetic_torch
 from ssvio_tpu_torch.eval import ate
 from ssvio_tpu_torch.ops import _nvcc, lk, lk_cuda, lk_patch_cuda, sampling
+from ssvio_tpu_torch.ops import lk_variants_cuda as lkv
 from ssvio_tpu_torch.system import System
 
 # Kernel vs plain version, positions (px), on every live track that
@@ -78,12 +97,89 @@ SCENES = {"kitti_bench": (dict(), 0.6),
           "robotcar_xb3_wide": (dict(wall_x=4.0, ceiling_y=-5.0), 0.4)}
 CHUNK_VS_STEP_M = 1e-3   # run_chunk vs run_step on one card: the same ops
                          # in the same order; atomics may reorder sums
+# mm (bf16): its windows carry about half an intensity unit of rounding
+# noise, and a one-ulp difference between kernel and plain version (how the
+# tensor cores round an f32 accumulation, the order of the window sums) can
+# flip a bf16 rounding and move a track to another point inside that noise
+# floor, whether it then converges or not (one converged track 0.034 px
+# apart at KITTI level 0, measured on one H100). So after 30 iterations mm
+# is held by the share of live tracks within POS_TOL_PX, which must be at
+# least MM_MIN_AGREE_SHARE; and where noise cannot build up, tightly: every
+# value of the windows its tensor-core sampler takes
+# (lk_variants_cuda.mm_windows) at the level's template and search
+# top-lefts must lie within MM_WINDOW_ULPS float32 ulps (of its window's
+# largest magnitude) of the plain blend's, where one bf16 rounding that
+# went the other way is ~2^15 of them; and one step (iters = 1) must land
+# within MM_STEP_TOL_PX of the plain version on every live track. Control:
+# the mm_f32 kernel, which leaves out the bf16 roundings, held against mm's
+# plain version must fail each of the three.
+MM_MIN_AGREE_SHARE = 1.0 - MAX_CAPPED_SHARE
+MM_WINDOW_ULPS = 2.0
+MM_STEP_TOL_PX = 1e-4
+FLAVOUR_FRAMES_CUT = 48     # phase 6 frames of the flavours other than mm
+                            # when the script would pass SCRIPT_BUDGET_S
+SCRIPT_BUDGET_S = 300.0
 KERNELS = {
     "lk_level": dict(source="ssvio_tpu_torch/csrc/lk_level.cu",
                      replaces="ssvio_tpu/ops/lk_pallas.py:344"),
     "lk_patch": dict(source="ssvio_tpu_torch/csrc/lk_patch.cu",
                      replaces="ssvio_tpu/ops/lk_pallas.py:375"),
+    "lk_level_sw": dict(source="ssvio_tpu_torch/csrc/lk_level_sw.cu",
+                        replaces="ssvio_tpu/ops/lk_pallas_variants.py:167"),
+    "lk_level_pk": dict(source="ssvio_tpu_torch/csrc/lk_level_pk.cu",
+                        replaces="ssvio_tpu/ops/lk_pallas_variants.py:104"),
+    "lk_level_mm": dict(source="ssvio_tpu_torch/csrc/lk_level_mm.cu",
+                        replaces="ssvio_tpu/ops/lk_pallas_variants.py:416"),
+    "lk_level_mm_f32": dict(source="ssvio_tpu_torch/csrc/lk_level_mm.cu",
+                            replaces="ssvio_tpu/ops/lk_pallas_variants.py:416"),
 }
+# the kernel pairs of phase 3b: launch counter, wrapper, plain version,
+# keywords (ops/lk.py::_level_fns; ymm and pkmm are one function)
+PAIRS = {
+    "sw": ("lk_level_sw", lkv.lk_level_sw, lkv.lk_level_sw_ref, {}),
+    "ymm/pkmm": ("lk_level_pk", lkv.lk_level_pk, lkv.lk_level_pk_ref, {}),
+    "mm": ("lk_level_mm", lkv.lk_level_mm, lkv.lk_level_mm_ref,
+           dict(use_bf16=True)),
+    "mm_f32": ("lk_level_mm_f32", lkv.lk_level_mm, lkv.lk_level_mm_ref,
+               dict(use_bf16=False)),
+}
+# the flavours of phase 6 and the launch counter of each one's kernel
+FLAVOURS = {"sw": "lk_level_sw", "ymm": "lk_level_pk", "pkmm": "lk_level_pk",
+            "mm": "lk_level_mm", "mm_f32": "lk_level_mm_f32"}
+# The least time one H100 SXM could take for a kernel's work (the
+# card's published peaks, at 700 W): device memory
+# 3.35 TB/s; 67 TFLOP/s float32 on the CUDA cores, 989 TFLOP/s bf16 on the
+# tensor cores (mm's sampling products).
+BOUND_BYTES_PER_S = 3.35e12
+BOUND_F32_PER_S = 67e12
+BOUND_BF16_PER_S = 989e12
+
+
+def bound_ms(n_kp: int, work: dict, win: int, bf16: bool,
+             io_words: int = 8):
+    """(ms, "bytes" or "operations"): the larger of the two times for one
+    KLT level of n_kp keypoints doing `work` (_work: counted by the plain
+    version on this run's inputs).
+    Bytes: each plane pixel the function needs, read once (the union of
+    the windows of _work, at 4 B, 2 B for bf16 planes), plus io_words
+    4-byte words a keypoint in and out.
+    Operations: sampling the gx and gy template windows of every keypoint,
+    the prev one of each keypoint live at the start and one search window
+    per keypoint-iteration, separably, 3 per output of the y pass
+    (win x (win+1)) and of the x pass (win x win), on the tensor cores for
+    bf16; the structure tensor (6 per pixel) and per iteration the residual
+    and two sums (5 per pixel) and the 2x2 solve (20), in float32."""
+    w1 = win + 1
+    kp_iters = work["kp_iters"]
+    windows = 2 * n_kp + work["live0"] + kp_iters
+    nbytes = work["pixels"] * (2 if bf16 else 4) + 4 * io_words * n_kp
+    sample_ops = windows * 3 * (win * w1 + win * win)
+    other_ops = n_kp * 6 * win * win + kp_iters * (5 * win * win + 20)
+    t_bytes = nbytes / BOUND_BYTES_PER_S
+    t_ops = (sample_ops / (BOUND_BF16_PER_S if bf16 else BOUND_F32_PER_S)
+             + other_ops / BOUND_F32_PER_S)
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
 
 
 def phase_device() -> str:
@@ -102,12 +198,15 @@ def phase_device() -> str:
 
 def phase_build() -> None:
     t0 = time.perf_counter()
-    sources = (lk_cuda.SRC, lk_patch_cuda.SRC)
+    sources = (lk_cuda.SRC, lk_patch_cuda.SRC, *lkv.SRC.values())
     with ThreadPoolExecutor(len(sources)) as ex:
         list(ex.map(_nvcc.build, sources))
     lk_cuda._library()
     lk_patch_cuda._library()
-    print(f"build: both kernels in {time.perf_counter() - t0:.2f} s")
+    for stem in lkv.SRC:
+        lkv._entry(stem)
+    print(f"build: {len(sources)} kernel sources in "
+          f"{time.perf_counter() - t0:.2f} s")
     for src in sources:
         info = _nvcc.build_info[src.stem]
         print(f"  {info['path']} (nvcc {info['seconds']:.2f} s)")
@@ -129,32 +228,110 @@ def _time_ms(fn, reps=20) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _device_ms(fn, reps=20) -> float:
+    """Device time of one launch of the LK kernel `fn` launches: the mean
+    of the kernel's own durations in a torch.profiler trace of `reps`
+    calls (the CUDA-event time of back-to-back wrapper calls also holds
+    the host work of each call). The trace may miss a launch (19 of 20
+    seen on one H100), so the mean is over those it holds."""
+    fn()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    evts = [e for e in prof.key_averages()
+            if "level_kernel" in e.key or "lk_patch_kernel" in e.key]
+    if len(evts) != 1 or not reps // 2 <= evts[0].count <= reps:
+        raise AssertionError(
+            f"profiler: expected one LK kernel launched {reps} times, got "
+            f"{[(e.key, e.count) for e in evts]}")
+    return evts[0].device_time_total / 1e3 / evts[0].count
+
+
 def _level_pair(name, pa, pb, l, pts, guess, valid, params):
     """The kernel `name` and its plain version as closures over the same
-    inputs at level l. Returns (kernel(), plain(iters), to_global(out):
-    the output as level positions, frozen0)."""
+    inputs at level l. Returns (kernel(), plain(iters, **counts),
+    to_global(out): the output as level positions, frozen0, level
+    arguments (planes, pts, guess, frozen0) or None for kernel #2, the
+    padded dims the plain version pads to)."""
     h, w = pa.levels[l].shape
     planes = (pa.levels[l], pa.gx[l], pa.gy[l], pb.levels[l])
     r = params.window // 2
     if name == "lk_patch":
         args, kw, org_C = lk.patch_inputs(h, w, pts, guess, valid, params)
         return (lambda: lk_patch_cuda.lk_patch(*planes, *args, **kw),
-                lambda it: lk_patch_cuda.lk_patch_ref(
-                    *planes, *args, **dict(kw, iters=it)),
-                lambda out: org_C + r + out, args[-1])
+                lambda it, **c: lk_patch_cuda.lk_patch_ref(
+                    *planes, *args, **dict(kw, iters=it), **c),
+                lambda out: org_C + r + out, args[-1], None,
+                kw["padded_hw"])
     frozen0 = (~valid | ~sampling.in_bounds(guess, h, w, r + 1)) \
         .to(torch.int32)[:, None]
     kw = dict(win=params.window, eps=params.eps, min_eig=params.min_eig,
               padded_hw=lk.padded_dims(h, w))
     args = (*planes, pts, guess, frozen0)
     return (lambda: lk_cuda.lk_level(*args, iters=params.iters, **kw),
-            lambda it: lk_cuda.lk_level_ref(*args, iters=it, **kw),
-            lambda out: out, frozen0)
+            lambda it, **c: lk_cuda.lk_level_ref(*args, iters=it, **kw, **c),
+            lambda out: out, frozen0, (args, kw), kw["padded_hw"])
 
 
-def phase_kernels_vs_plain(tag: str, s: Settings, dev) -> list:
+def _hold(label, out_k, flag_k, plain, iters, frozen0, to_global, h, w,
+          mm=False):
+    """Phase 3's checks of a kernel's output against its plain version.
+    Returns (stats, plain output as level positions)."""
+    out_r, flag_r = plain(iters)
+    # tracks still stepping at the iteration cap: the plain version one
+    # step short lands elsewhere. They have not converged, so float-order
+    # noise is not bounded there; they are reported, and the tolerance
+    # holds on every track that converged
+    capped = torch.any(plain(iters - 1)[0] != out_r, dim=-1)
+    torch.cuda.synchronize()
+    n_flag_diff = int((flag_k != flag_r).sum())
+    g_r = to_global(out_r)
+    live = (flag_k[:, 0] > 0) & (frozen0[:, 0] == 0) \
+        & sampling.in_bounds(g_r, h, w, 1.0)
+    d = torch.max(torch.abs(out_k - out_r), dim=-1).values
+    err = float(d[live & ~capped].max()) if bool((live & ~capped).any()) \
+        else 0.0
+    err_capped = float(d[live & capped].max()) \
+        if bool((live & capped).any()) else 0.0
+    n_live, n_capped = int(live.sum()), int((live & capped).sum())
+    agree = float((d[live] <= POS_TOL_PX).float().mean()) if n_live else 1.0
+    res = dict(live=n_live, capped=n_capped, flag_diff=n_flag_diff,
+               max_abs_err=err, max_abs_err_capped=err_capped,
+               agree_share=agree)
+    if n_flag_diff:
+        raise AssertionError(f"{label}: {n_flag_diff} flags differ")
+    if mm:
+        if agree < MM_MIN_AGREE_SHARE:
+            raise AssertionError(f"{label}: {agree:.3f} of the live tracks "
+                                 f"agree, < {MM_MIN_AGREE_SHARE}")
+    elif n_capped > MAX_CAPPED_SHARE * n_live:
+        raise AssertionError(f"{label}: {n_capped} of {n_live} live tracks "
+                             "hit the cap")
+    elif not err <= POS_TOL_PX:
+        raise AssertionError(f"{label}: positions differ by {err} px > "
+                             f"{POS_TOL_PX}")
+    if not bool(torch.isfinite(out_k).all()):
+        raise AssertionError(f"{label}: non-finite")
+    return res, g_r, live
+
+
+def _work(plain, iters, padded_hw, hw) -> dict:
+    """What the kernel must do on these inputs, counted by its plain
+    version (lk_cuda.klt_solve_ref): keypoint-iterations, keypoints live
+    at the loop's start, and the distinct plane pixels the function needs
+    inside the true level dims hw."""
+    counts = {}
+    plain(iters, counts=counts)
+    return dict(kp_iters=int(counts["kp_iters"]), live0=int(counts["live0"]),
+                pixels=lk_cuda.touched_pixels(counts, padded_hw, hw))
+
+
+def phase_kernels_vs_plain(tag: str, s: Settings, dev):
     """Every level of a temporal and a stereo track, each on the kernel
-    the level takes, against its plain version. Returns one row per level."""
+    the level takes, against its plain version. Returns one row per level,
+    and the inputs of every level on kernel #1 (for phase 3b)."""
     front = System(s, enable_loop_closing=False, device=dev).frontend
     world = synthetic.SyntheticWorld(seed=4, **SCENES[tag][0])
     cam = s.cam_left
@@ -175,7 +352,7 @@ def phase_kernels_vs_plain(tag: str, s: Settings, dev) -> list:
           f"{s.max_features} keypoints detected (the rest ride along "
           "frozen, as on the path)")
     params = front.lk_params_stereo          # 4 levels
-    rows = []
+    rows, levels = [], []
     for pair, (a, b) in (("temporal", ("L0", "L1")), ("stereo", ("L0", "R0"))):
         pa, pb = pyr[a], pyr[b]
         flow = torch.zeros_like(feat.xy)
@@ -184,51 +361,164 @@ def phase_kernels_vs_plain(tag: str, s: Settings, dev) -> list:
             name = "lk_patch" if lk.uses_patch_kernel(h, w) else "lk_level"
             pts = (feat.xy / 2.0 ** l).contiguous()
             guess = (pts + flow).contiguous()
-            kern, plain, to_global, frozen0 = _level_pair(
-                name, pa, pb, l, pts, guess, feat.valid, params)
+            kern, plain, to_global, frozen0, level_args, padded_hw = \
+                _level_pair(name, pa, pb, l, pts, guess, feat.valid, params)
             out_k, flag_k = kern()
-            out_r, flag_r = plain(params.iters)
-            # tracks still stepping at the iteration cap: the plain version
-            # one step short lands elsewhere. They have not converged, so
-            # float-order noise is not bounded there; they are reported,
-            # and the tolerance holds on every track that converged
-            capped = torch.any(plain(params.iters - 1)[0] != out_r, dim=-1)
-            torch.cuda.synchronize()
-            n_flag_diff = int((flag_k != flag_r).sum())
-            g_r = to_global(out_r)
-            live = (flag_k[:, 0] > 0) & (frozen0[:, 0] == 0) \
-                & sampling.in_bounds(g_r, h, w, 1.0)
-            d = torch.max(torch.abs(out_k - out_r), dim=-1).values
-            err = float(d[live & ~capped].max()) \
-                if bool((live & ~capped).any()) else 0.0
-            err_capped = float(d[live & capped].max()) \
-                if bool((live & capped).any()) else 0.0
+            res, g_r, live = _hold(f"{tag} {pair} level {l}", out_k, flag_k,
+                                   plain, params.iters, frozen0, to_global,
+                                   h, w)
             ms_k = _time_ms(kern)
             ms_r = _time_ms(lambda: plain(params.iters))
+            dev_ms = _device_ms(kern) if l == 0 and pair == "temporal" \
+                else None
+            n_kp = pts.shape[0]
+            work = _work(plain, params.iters, padded_hw, (h, w))
+            kp_iters = work["kp_iters"]
+            b_ms, b_by = bound_ms(n_kp, work, params.window, False,
+                                  io_words=12 if name == "lk_patch" else 8)
             moved = torch.linalg.norm(g_r[live] - pts[live], dim=-1)
-            n_live, n_capped = int(live.sum()), int((live & capped).sum())
-            print(f"  {pair:8s} level {l} [{h}x{w}] {name} live {n_live:3d}"
-                  f" capped {n_capped} flag_diff {n_flag_diff}"
-                  f" max_abs_err {err:.3g} px (capped {err_capped:.3g} px)"
-                  f" median_flow {float(moved.median()) if n_live else 0:.2f}"
-                  f" px kernel {ms_k:.4f} ms plain {ms_r:.4f} ms")
-            if n_flag_diff:
-                raise AssertionError(f"{tag} {pair} level {l}: {n_flag_diff} "
-                                     "flags differ")
-            if n_capped > MAX_CAPPED_SHARE * n_live:
-                raise AssertionError(f"{tag} {pair} level {l}: {n_capped} of "
-                                     f"{n_live} live tracks hit the cap")
-            if not err <= POS_TOL_PX:
-                raise AssertionError(f"{tag} {pair} level {l}: positions "
-                                     f"differ by {err} px > {POS_TOL_PX}")
-            if not bool(torch.isfinite(out_k).all()):
-                raise AssertionError(f"{tag} {pair} level {l}: non-finite")
+            print(f"  {pair:8s} level {l} [{h}x{w}] {name} live "
+                  f"{res['live']:3d} capped {res['capped']} flag_diff "
+                  f"{res['flag_diff']} max_abs_err {res['max_abs_err']:.3g} px"
+                  f" (capped {res['max_abs_err_capped']:.3g} px) median_flow "
+                  f"{float(moved.median()) if res['live'] else 0:.2f} px "
+                  f"kernel {ms_k:.4f} ms plain {ms_r:.4f} ms kp_iters "
+                  f"{kp_iters} needed_px {work['pixels']} bound "
+                  f"{b_ms:.6f} ms ({b_by})"
+                  + (f" device {dev_ms:.4f} ms" if dev_ms else ""))
             rows.append(dict(config=tag, pair=pair, level=l, kernel=name,
-                             pixels=h * w, max_abs_err=err, ms=ms_k,
-                             plain_ms=ms_r))
+                             pixels=h * w, max_abs_err=res["max_abs_err"],
+                             ms=ms_k, plain_ms=ms_r, bound_ms=b_ms,
+                             bound_by=b_by, kp_iters=kp_iters,
+                             needed_px=work["pixels"], device_ms=dev_ms))
+            if level_args is not None:
+                levels.append(dict(pair=pair, level=l, h=h, w=w,
+                                   args=level_args, out_1=out_k,
+                                   frozen0=frozen0, iters=params.iters,
+                                   padded_hw=padded_hw))
             if l > 0:
                 flow = (g_r - pts) * 2.0
+    return rows, levels
+
+
+def phase_flavours_vs_plain(levels) -> list:
+    """Phase 3b: each flavour's kernel against its plain version at the
+    KITTI levels of phase 3 (kernel #1's inputs), and its largest position
+    difference from kernel #1 there."""
+    print("flavours-vs-plain [kitti_bench]:")
+    rows = []
+    for flavour, (counter, fn, ref, extra) in PAIRS.items():
+        diff_1 = 0.0
+        for lv in levels:
+            (args, kw), h, w, l = lv["args"], lv["h"], lv["w"], lv["level"]
+            kern = functools.partial(fn, *args, iters=lv["iters"], **kw,
+                                     **extra)
+            def plain(it, **c):
+                return ref(*args, iters=it, **kw, **extra, **c)
+            out_k, flag_k = kern()
+            res, _, live = _hold(f"{flavour} {lv['pair']} level {l}", out_k,
+                                 flag_k, plain, lv["iters"], lv["frozen0"],
+                                 lambda out: out, h, w, mm=flavour == "mm")
+            d1 = float(torch.max(torch.abs(out_k - lv["out_1"])[live])) \
+                if res["live"] else 0.0
+            diff_1 = max(diff_1, d1)
+            tight = _mm_tight(lv, plain(lv["iters"])[0]) \
+                if flavour == "mm" else None
+            ms_k = _time_ms(kern)
+            ms_r = _time_ms(lambda: plain(lv["iters"]))
+            dev_ms = _device_ms(kern) if l == 0 and lv["pair"] == "temporal" \
+                else None
+            work = _work(plain, lv["iters"], lv["padded_hw"], (h, w))
+            b_ms, b_by = bound_ms(args[4].shape[0], work, kw["win"],
+                                  flavour == "mm")
+            print(f"  {flavour:8s} {lv['pair']:8s} level {l} [{h}x{w}] "
+                  f"{counter} live {res['live']:3d} capped {res['capped']} "
+                  f"agree {res['agree_share']:.3f} max_abs_err "
+                  f"{res['max_abs_err']:.3g} px (capped "
+                  f"{res['max_abs_err_capped']:.3g} px) vs kernel #1 "
+                  f"{d1:.3g} px kernel {ms_k:.4f} ms plain {ms_r:.4f} ms "
+                  f"kp_iters {work['kp_iters']} needed_px {work['pixels']} "
+                  f"bound {b_ms:.6f} ms ({b_by})"
+                  + (f" device {dev_ms:.4f} ms" if dev_ms else ""))
+            if tight:
+                print("    mm tight: " + json.dumps(tight))
+            rows.append(dict(config="kitti_bench", pair=lv["pair"], level=l,
+                             kernel=counter, flavour=flavour, pixels=h * w,
+                             max_abs_err=res["max_abs_err"], ms=ms_k,
+                             plain_ms=ms_r, bound_ms=b_ms, bound_by=b_by,
+                             kp_iters=work["kp_iters"],
+                             needed_px=work["pixels"], vs_kernel1_px=d1,
+                             device_ms=dev_ms))
+        print(f"  {flavour}: largest position difference from kernel #1 on "
+              f"the same inputs {diff_1:.3g} px (live tracks)")
     return rows
+
+
+def window_ulps(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The largest |got - want| over windows [n, win, win], in float32
+    ulps (2^-23) of each window's largest magnitude in `want`."""
+    scale = want.abs().amax(dim=(1, 2), keepdim=True).clamp_min(2.0 ** -126)
+    return float(((got - want).abs() / (scale * 2.0 ** -23)).max())
+
+
+def _mm_tight(lv, out_r, check=True) -> dict:
+    """mm's tight checks at one level of phase 3b, and their control
+    (MM_* above): the windows the tensor-core sampler takes at the level's
+    template (prev, gx, gy) and search-start (cur) top-lefts, clipped as
+    the solve clips them, against the plain blend's; one step against the
+    plain version on every live track; and the mm_f32 kernel against mm's
+    plain version through all three checks. `out_r`: the plain version's
+    answer at lv["iters"]. Raises unless mm passes and the control fails
+    each check (`check`)."""
+    (args, kw), h, w = lv["args"], lv["h"], lv["w"]
+    planes, pts, guess, frozen0 = args[:4], args[4], args[5], args[6]
+    win, r = kw["win"], kw["win"] // 2
+    hb, wb = kw["padded_hw"]
+    lim = torch.tensor([min(wb - win - 2, w - 1), min(hb - win - 2, h - 1)],
+                       dtype=torch.float32, device=pts.device)
+
+    def top_left(p):
+        return torch.minimum(torch.clamp(p - r, min=0.0), lim).contiguous()
+
+    t_tl, c_tl = top_left(pts), top_left(guess)
+    one = dict(kw, iters=1)
+    step_r, flag_r = lkv.lk_level_mm_ref(*args, **one, use_bf16=True)
+    live = (flag_r[:, 0] > 0) & (frozen0[:, 0] == 0)
+    res = {}
+    for tag, use_bf16 in (("mm", True), ("control_mm_f32", False)):
+        n_eq = n_all = 0
+        d_win = ulps = 0.0
+        for plane, tl in zip(planes, (t_tl, t_tl, t_tl, c_tl)):
+            got = lkv.mm_windows(plane, tl, win=win, use_bf16=use_bf16)
+            want = lkv.mm_windows_ref(plane, tl, win=win, use_bf16=True)
+            n_eq += int((got == want).sum())
+            n_all += got.numel()
+            d_win = max(d_win, float((got - want).abs().max()))
+            ulps = max(ulps, window_ulps(got, want))
+        step_k, _ = lkv.lk_level_mm(*args, **one, use_bf16=use_bf16)
+        out_k, flag_k = lkv.lk_level_mm(*args, **kw, iters=lv["iters"],
+                                        use_bf16=use_bf16)
+        d = torch.max(torch.abs(out_k - out_r), dim=-1).values
+        live30 = live & (flag_k[:, 0] > 0) \
+            & sampling.in_bounds(out_r, h, w, 1.0)
+        res[tag] = dict(
+            window_ulps=ulps, window_equal_share=n_eq / n_all,
+            window_max_diff=d_win,
+            step_max_px=float(torch.abs(step_k - step_r)[live].max()),
+            agree_share=float((d[live30] <= POS_TOL_PX).float().mean()))
+    torch.cuda.synchronize()
+    mm, ctl = res["mm"], res["control_mm_f32"]
+    passes = [mm["window_ulps"] <= MM_WINDOW_ULPS,
+              mm["step_max_px"] <= MM_STEP_TOL_PX,
+              mm["agree_share"] >= MM_MIN_AGREE_SHARE]
+    control_fails = [ctl["window_ulps"] > MM_WINDOW_ULPS,
+                     ctl["step_max_px"] > MM_STEP_TOL_PX,
+                     ctl["agree_share"] < MM_MIN_AGREE_SHARE]
+    if check and not (all(passes) and all(control_fails)):
+        raise AssertionError(f"mm {lv['pair']} level {lv['level']}: tight "
+                             f"checks {passes}, control fails "
+                             f"{control_fails}: {res}")
+    return res
 
 
 def _implied_launches(before, after):
@@ -270,12 +560,20 @@ def _check_run(tag, sys_, after, est, poses, launches, expected):
 
 
 def _launches():
-    return dict(lk_level=lk_cuda.LAUNCHES, lk_patch=lk_patch_cuda.LAUNCHES)
+    return dict(lk_level=lk_cuda.LAUNCHES, lk_patch=lk_patch_cuda.LAUNCHES,
+                **lkv.LAUNCHES)
 
 
 def _zero_launches():
     lk_cuda.LAUNCHES = 0
     lk_patch_cuda.LAUNCHES = 0
+    for k in lkv.LAUNCHES:
+        lkv.LAUNCHES[k] = 0
+
+
+def _expect(**counts):
+    """Every kernel's launch count: `counts`, and 0 for the others."""
+    return dict(dict.fromkeys(_launches(), 0), **counts)
 
 
 def _render(tag, s, sys_, dev):
@@ -304,7 +602,7 @@ def _run_steps(sys_, L, R, ts):
     return before, after, ms
 
 
-def phase_run_step(s: Settings, dev) -> dict:
+def phase_run_step(s: Settings, dev):
     print("run_step path [kitti_bench]:")
     sys_ = System(s, enable_backend=True, enable_loop_closing=False,
                   device=dev)
@@ -315,7 +613,7 @@ def phase_run_step(s: Settings, dev) -> dict:
     imp = _implied_launches(before, after)
     _, est = sys_.frame_trajectory()
     res = _check_run("run_step", sys_, after, est, poses, launches,
-                     imp["level0_on_level"])
+                     _expect(**imp["level0_on_level"]))
     res.update(launches=launches, median_ms_per_frame=float(np.median(ms)),
                median_ms_tracked_good=float(np.median(
                    [m for m, b, a in zip(ms, before, after)
@@ -324,7 +622,7 @@ def phase_run_step(s: Settings, dev) -> dict:
                total_s=sum(ms) / 1e3, n_init_attempts=imp["n_init_attempts"],
                n_tracked=imp["n_tracked"])
     print("  run_step: " + json.dumps(res))
-    return res
+    return res, dict(poses=poses, L=L, R=R, after=after, est=est)
 
 
 def phase_chunks(s: Settings, dev) -> dict:
@@ -365,7 +663,7 @@ def phase_chunks(s: Settings, dev) -> dict:
     imp = _implied_launches(before, after)
     _, est = sys_.frame_trajectory()
     res = _check_run("run_chunk", sys_, after, est, poses, launches,
-                     imp["level0_on_patch"])
+                     _expect(**imp["level0_on_patch"]))
     res.update(launches=launches, n_init_attempts=imp["n_init_attempts"],
                n_tracked=imp["n_tracked"],
                chunk_ms=chunk_ms, median_ms_per_chunk=float(np.median(chunk_ms)),
@@ -379,7 +677,7 @@ def phase_chunks(s: Settings, dev) -> dict:
     _zero_launches()
     before2, after2, ms = _run_steps(ref, L, R, ts)
     imp2 = _implied_launches(before2, after2)
-    if _launches() != imp2["level0_on_patch"]:
+    if _launches() != _expect(**imp2["level0_on_patch"]):
         raise AssertionError(f"run_step at 1280x960: launches {_launches()} "
                              f"!= {imp2['level0_on_patch']}")
     _, est2 = ref.frame_trajectory()
@@ -398,17 +696,62 @@ def phase_chunks(s: Settings, dev) -> dict:
     return res
 
 
+def phase_flavours(s: Settings, dev, serial: dict, t_start: float) -> dict:
+    """Phase 6: phase 4's frames through run_step on each flavour."""
+    est_s = len(FLAVOURS) * serial["seconds"]
+    n_cut = N_FRAMES
+    if time.perf_counter() - t_start + est_s > SCRIPT_BUDGET_S:
+        n_cut = FLAVOUR_FRAMES_CUT
+        print(f"flavours: the script would pass {SCRIPT_BUDGET_S:.0f} s; "
+              f"the flavours other than mm run {n_cut} of {N_FRAMES} frames")
+    out = {}
+    for flavour, counter in FLAVOURS.items():
+        n = N_FRAMES if flavour == "mm" else n_cut
+        sk = dataclasses.replace(s, lk_kernel=flavour)
+        sys_ = System(sk, enable_backend=True, enable_loop_closing=False,
+                      device=dev)
+        _zero_launches()
+        before, after, ms = _run_steps(sys_, serial["L"][:n], serial["R"][:n],
+                                       [i / s.fps for i in range(n)])
+        launches = _launches()
+        imp = _implied_launches(before, after)
+        _, est = sys_.frame_trajectory()
+        res = _check_run(f"run_step [{flavour}]", sys_, after, est,
+                         serial["poses"][:n], launches,
+                         _expect(**{counter: imp["level0_on_level"]
+                                    ["lk_level"]}))
+        res.update(frames=n, launches=launches,
+                   median_ms_per_frame=float(np.median(ms)),
+                   status_diff_vs_serial=sum(
+                       a != b for a, b in zip(after, serial["after"][:n])),
+                   max_position_diff_vs_serial_m=float(np.abs(
+                       est[:, :, 3] - serial["est"][:n, :, 3]).max()))
+        print(f"  run_step [{flavour}]: " + json.dumps(res))
+        out[flavour] = dict(res, est=est, after=after)
+    # ymm and pkmm name one function: the runs must be the same
+    y, p = out["ymm"], out["pkmm"]
+    if y["after"] != p["after"] or not np.array_equal(y["est"], p["est"]):
+        raise AssertionError("run_step [pkmm] differs from run_step [ymm]")
+    print("  run_step [pkmm] = run_step [ymm]: statuses and trajectory equal")
+    return out
+
+
 def main() -> None:
+    t_start = time.perf_counter()
     phase_device()
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     phase_build()
     kitti, robotcar = bench_settings(), robotcar_xb3_wide_settings()
     with torch.no_grad():
-        rows = (phase_kernels_vs_plain("kitti_bench", kitti, dev)
-                + phase_kernels_vs_plain("robotcar_xb3_wide", robotcar, dev))
-        step = phase_run_step(kitti, dev)
+        rows, levels = phase_kernels_vs_plain("kitti_bench", kitti, dev)
+        rows += phase_kernels_vs_plain("robotcar_xb3_wide", robotcar, dev)[0]
+        rows += phase_flavours_vs_plain(levels)
+        t0 = time.perf_counter()
+        step, frames = phase_run_step(kitti, dev)
+        frames["seconds"] = time.perf_counter() - t0
         chunk = phase_chunks(robotcar, dev)
+        flavours = phase_flavours(kitti, dev, frames, t_start)
     table = []
     for name, meta in KERNELS.items():
         mine = [r for r in rows if r["kernel"] == name]
@@ -417,9 +760,20 @@ def main() -> None:
                   key=lambda r: r["pixels"])
         table.append(dict(
             name=name, route="cuda", **meta,
-            launches=step["launches"][name] + chunk["launches"][name],
+            launches=(step["launches"][name] + chunk["launches"][name]
+                      + sum(f["launches"][name] for f in flavours.values())),
             max_abs_err=max(r["max_abs_err"] for r in mine),
-            ms=big["ms"], plain_ms=big["plain_ms"]))
+            ms=big["ms"], plain_ms=big["plain_ms"], bound_ms=big["bound_ms"],
+            bound_by=big["bound_by"], library_ms=None))
+    for name in KERNELS:
+        big = max((r for r in rows if r["kernel"] == name
+                   and r["pair"] == "temporal"), key=lambda r: r["pixels"])
+        print(f"device time [{name}] at {big['config']} level "
+              f"{big['level']}: {big['device_ms']:.4f} ms a launch "
+              f"(torch.profiler), bound {big['bound_ms']:.6f} ms "
+              f"({big['bound_by']}): {big['bound_ms'] / big['device_ms']:.4f}"
+              " of the bound")
+    print(f"script: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

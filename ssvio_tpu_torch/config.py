@@ -176,9 +176,10 @@ class Settings:
     lk_levels: int = 3                  # LK pyramid levels (reference: 3)
     lk_iters: int = 30                  # LK iterations (reference: 30)
     lk_eps: float = 0.01                # LK convergence epsilon (reference: 0.01)
-    # LK level kernel flavor. The port has only 'serial' (per-keypoint KLT
-    # with individual early exit, ops/lk_cuda.py); the JAX package's other
-    # flavors ('sw', 'ymm', 'pkmm', 'mm', 'mm_f32') raise until ported
+    # LK level kernel flavour (ops/lk.py, as the JAX package's): 'serial'
+    # (kernel #1, ops/lk_cuda.py), 'sw' (kernel #3), 'ymm'/'pkmm' (kernel
+    # #4), 'mm'/'mm_f32' (kernel #5, bf16 / float32; ops/lk_variants_cuda.py);
+    # any other name raises
     lk_kernel: str = "serial"
     # LK execution path (ops/lk.py::_track_level): 'auto' = the CUDA kernel
     # on CUDA tensors, the patch-bounded torch path on CPU tensors; 'cuda'

@@ -46,9 +46,9 @@ lk_patch_kernel(const float* __restrict__ prev, const float* __restrict__ gx,
   float lx = local0[2 * kp];
   float ly = local0[2 * kp + 1];
   bool good;
-  klt_solve(prev, gx, gy, cur, H, W, lane, win, iters, eps, min_eig, tmpl,
-            localT[2 * kp], localT[2 * kp + 1], search, frozen0[kp] > 0, lx,
-            ly, good);
+  klt_solve<false>(GlobalSampler(H, W, lane, win, nullptr), prev, gx, gy,
+                   cur, win, iters, eps, min_eig, tmpl, localT[2 * kp],
+                   localT[2 * kp + 1], search, frozen0[kp] > 0, lx, ly, good);
   if (lane == 0) {
     local_out[2 * kp] = lx;
     local_out[2 * kp + 1] = ly;
@@ -71,7 +71,7 @@ extern "C" int ssvio_lk_patch(const float* prev, const float* gx,
                               int n, int win, int pty, int pcy, int iters,
                               float eps, float min_eig, void* stream) {
   if (n <= 0) return 0;
-  if (win < 1 || win * win > 32 * kPixPerLane || pty < win + 2 ||
+  if (win < 1 || win > kMaxWin || pty < win + 2 ||
       pcy < win + 2 || kLanes < win + 2)
     return (int)cudaErrorInvalidValue;
   const dim3 block(32 * kWarpsPerBlock);

@@ -67,16 +67,29 @@ def _link(lm_slot: torch.Tensor, m_size: int) -> torch.Tensor:
     return torch.clamp(lm_slot, 0, m_size - 1).long()
 
 
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: `device` where one is given, else
+    the current CUDA device. Never the CPU unless asked for: without a CUDA
+    device, None raises."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "ssvio_tpu_torch runs on a CUDA device by default and none is "
+            "available; pass device=\"cpu\" to run on the CPU")
+    return torch.device("cuda", torch.cuda.current_device())
+
+
 class Frontend:
-    """Runs the per-frame steps eagerly on `device`."""
+    """Runs the per-frame steps eagerly on `device` (resolve_device: the
+    GPU unless device="cpu" is given)."""
 
     def __init__(self, settings: Settings, width: int, height: int,
                  real_width: int | None = None, real_height: int | None = None,
                  device=None):
         s = settings
         self.s = s
-        self.device = torch.device(device) if device is not None \
-            else torch.device("cpu")
+        self.device = resolve_device(device)
         self.w, self.h = width, height            # padded device dims
         self.rw = real_width or width             # true sensor dims (gates)
         self.rh = real_height or height

@@ -9,33 +9,45 @@ function (ROADMAP Queue 3):
 - the patch-bounded path (`_track_level_xla`, the JAX package's XLA path):
   each keypoint samples from a fixed patch around its seed and freezes at
   the patch edge (margin 8);
-- kernel #1's semantics (`lk_cuda.lk_level`, the JAX package's VMEM Pallas
-  kernel): bounded only by the padded level;
-- kernel #2's semantics (`lk_patch_cuda.lk_patch`, the JAX package's
+- kernel #1's function (the JAX package's VMEM Pallas kernels): bounded
+  only by the padded level. `LKParams.kernel` picks how its window is
+  sampled, as in the JAX package, and each flavour has its own CUDA kernel
+  and plain version (`_level_fns`):
+  - "serial": kernel #1, `lk_cuda.lk_level` (four-corner blend from L2);
+  - "sw": kernel #3, `lk_variants_cuda.lk_level_sw` (the window staged in
+    shared memory; kernel #1's values);
+  - "ymm", "pkmm": kernel #4, `lk_variants_cuda.lk_level_pk` (separable:
+    y blend, then x; one function for both);
+  - "mm", "mm_f32": kernel #5, `lk_variants_cuda.lk_level_mm` (lockstep
+    groups of 8; "mm" samples By S Bx^T on the tensor cores in bf16,
+    "mm_f32" in float32);
+- kernel #2's function (`lk_patch_cuda.lk_patch`, the JAX package's
   HBM-patch Pallas kernel): bounded by a 256-lane patch box at a (128,
-  8)-aligned origin. The JAX package takes it where kernel #1's four padded
-  planes exceed `PLANE_BUDGET_BYTES` (`uses_patch_kernel`).
+  8)-aligned origin. The JAX package takes it, whatever the flavour, where
+  kernel #1's four padded planes exceed `PLANE_BUDGET_BYTES`
+  (`uses_patch_kernel`).
 
 `LKParams.backend` picks one (`_track_level`):
 - "auto": the CUDA kernels for CUDA tensors, the patch-bounded path for
-  CPU tensors (JAX's "auto" takes XLA off the TPU);
+  CPU tensors (JAX's "auto" takes XLA off the TPU), whatever the flavour;
 - "cuda": the CUDA kernels; raises for tensors that are not on a GPU;
-- "xla": the patch-bounded path;
-- "ref": the kernels' plain torch versions `lk_cuda.lk_level_ref` and
-  `lk_patch_cuda.lk_patch_ref` (the port's analogue of JAX's
-  "pallas_interpret").
-The kernel backends choose between kernel #1 and kernel #2 per level by
-the budget, as the JAX package does. A CUDA tensor never falls back from a
-kernel to a plain version.
+- "xla": the patch-bounded path, whatever the flavour;
+- "ref": the kernels' plain torch versions (the flavour's, and
+  `lk_patch_cuda.lk_patch_ref` above the budget; the port's analogue of
+  JAX's "pallas_interpret").
+The kernel backends choose between the flavour's kernel and kernel #2 per
+level by the budget, as the JAX package does (`ssvio_tpu/ops/lk.py:133`).
+A CUDA tensor never falls back from a kernel to a plain version.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import List, NamedTuple, Tuple
 
 import torch
 
-from ssvio_tpu_torch.ops import lk_cuda, lk_patch_cuda
+from ssvio_tpu_torch.ops import lk_cuda, lk_patch_cuda, lk_variants_cuda
 from ssvio_tpu_torch.ops import pyramid as pyr_ops
 from ssvio_tpu_torch.ops import sampling
 
@@ -55,21 +67,35 @@ class LKParams(NamedTuple):
     min_eig: float = 1e-4     # per-pixel min eigenvalue threshold (OpenCV-like)
     margin: int = 8           # search slack around the seed per level (px)
     backend: str = "auto"     # "auto" | "cuda" | "xla" | "ref" (module doc)
-    # level-kernel flavor: only "serial" is ported (ROADMAP Queue 2 #3-#5
-    # hold the JAX package's "sw", "ymm"/"pkmm" and "mm"/"mm_f32")
-    kernel: str = "serial"
+    kernel: str = "serial"    # level-kernel flavour, one of FLAVOURS
 
 
 _BACKENDS = ("auto", "cuda", "xla", "ref")
+FLAVOURS = ("serial", "sw", "ymm", "pkmm", "mm", "mm_f32")
 
 
 def _check_params(params: LKParams) -> None:
-    if params.kernel != "serial":
-        raise NotImplementedError(
-            f"LK kernel {params.kernel!r} is not ported; only 'serial' is "
-            "(ROADMAP Queue 2 #3-#5: lk_level_vmem_sw / _pk / _mm)")
+    # the JAX package runs 'serial' for a name it does not know; the port
+    # refuses it (ROADMAP Queue 3)
+    if params.kernel not in FLAVOURS:
+        raise ValueError(f"LK kernel {params.kernel!r} not in {FLAVOURS}")
     if params.backend not in _BACKENDS:
         raise ValueError(f"LK backend {params.backend!r} not in {_BACKENDS}")
+
+
+def _level_fns(kernel: str):
+    """(CUDA kernel wrapper, plain version) of a flavour's level function
+    (`ssvio_tpu/ops/lk.py:144-168`), looked up when called."""
+    lkv = lk_variants_cuda
+    if kernel == "sw":
+        return lkv.lk_level_sw, lkv.lk_level_sw_ref
+    if kernel in ("ymm", "pkmm"):          # one function (lk_level_pk)
+        return lkv.lk_level_pk, lkv.lk_level_pk_ref
+    if kernel in ("mm", "mm_f32"):
+        kw = dict(use_bf16=kernel == "mm")
+        return (functools.partial(lkv.lk_level_mm, **kw),
+                functools.partial(lkv.lk_level_mm_ref, **kw))
+    return lk_cuda.lk_level, lk_cuda.lk_level_ref
 
 
 def _patch_index(h: int, w: int, top_left: torch.Tensor, size: int):
@@ -146,7 +172,8 @@ def _level_ok(flag, pts_out, pts_prev, img_prev, h, w) -> torch.Tensor:
 
 def _track_level_kernel(img_prev, img_cur, gx, gy, pts_prev, pts_guess,
                         valid, params: LKParams, level_fn):
-    """Kernel #1's level (JAX `_track_level_pallas`, VMEM branch)."""
+    """Kernel #1's function with the flavour's sampler `level_fn` (JAX
+    `_track_level_pallas`, VMEM branch)."""
     win = params.window
     h, w = img_cur.shape
     pts_out, flag = level_fn(img_prev, gx, gy, img_cur,
@@ -296,9 +323,10 @@ def _track_level(img_prev: torch.Tensor, img_cur: torch.Tensor,
             img_prev, img_cur, gx, gy, pts_prev, pts_guess, valid, params,
             lk_patch_cuda.lk_patch_ref if backend == "ref"
             else lk_patch_cuda.lk_patch)
+    kernel, plain = _level_fns(params.kernel)
     return _track_level_kernel(
         img_prev, img_cur, gx, gy, pts_prev, pts_guess, valid, params,
-        lk_cuda.lk_level_ref if backend == "ref" else lk_cuda.lk_level)
+        plain if backend == "ref" else kernel)
 
 
 def track(pyr_prev: List[torch.Tensor], pyr_cur: List[torch.Tensor],

@@ -34,12 +34,11 @@ launches; nothing else increments it.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 
-from ssvio_tpu_torch.ops import _nvcc
+from ssvio_tpu_torch.ops import _nvcc, lk_cuda
 from ssvio_tpu_torch.ops._nvcc import MAX_WINDOW_PIXELS, check
 
 LAUNCHES = 0          # kernel launches made by lk_patch (CUDA tensors only)
@@ -134,77 +133,20 @@ def lk_patch_ref(img_prev: torch.Tensor, gx: torch.Tensor, gy: torch.Tensor,
                  tl_cur: torch.Tensor, localT: torch.Tensor,
                  local0: torch.Tensor, frozen0: torch.Tensor, *, win: int,
                  pty: int, pcy: int, iters: int, eps: float, min_eig: float,
-                 padded_hw: Tuple[int, int],
+                 padded_hw: Tuple[int, int], counts: Optional[dict] = None,
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain torch version of the kernel (same contract as lk_patch).
+    """Plain torch version of the kernel (same contract as lk_patch; see
+    lk_cuda.klt_solve_ref for `counts`).
 
     Zero-pads the planes to `padded_hw` and samples them at origin + local
-    coordinate. A masked loop of exactly `iters` steps over all keypoints
-    that carries `frozen`: a frozen keypoint keeps its position, which is
-    the answer the kernel's per-keypoint `while` loop gives."""
-    H, W = img_cur.shape
-    Hp, Wp = padded_hw
-    dev = img_cur.device
-    pad = (0, Wp - W, 0, Hp - H)
-    planes = [F.pad(p, pad) if pad != (0, 0, 0, 0) else p
-              for p in (img_prev, gx, gy, img_cur)]
-    prev_p, gx_p, gy_p, cur_p = [p.reshape(-1) for p in planes]
+    coordinate, through the solve that every kernel's plain version shares
+    (lk_cuda.klt_solve_ref), with kernel #2's frames."""
     lim_x = float(LANES - win - 1)
-    limT_y = float(pty - win - 1)
-    lim_y = float(pcy - win - 1)
-    off = torch.arange(win + 1, device=dev)
-
-    def base(v, lim):
-        return torch.clamp(torch.nan_to_num(torch.floor(v)), 0.0, lim)
-
-    def sample(flat, org, bx, by, fx, fy):
-        y0 = org[:, 1].long() + by.long()
-        x0 = org[:, 0].long() + bx.long()
-        idx = ((y0[:, None, None] + off[None, :, None]) * Wp
-               + x0[:, None, None] + off[None, None, :])
-        s = flat[idx]
-        fx = fx[:, None, None]
-        fy = fy[:, None, None]
-        return ((1 - fy) * (1 - fx) * s[:, :win, :win]
-                + (1 - fy) * fx * s[:, :win, 1:]
-                + fy * (1 - fx) * s[:, 1:, :win]
-                + fy * fx * s[:, 1:, 1:])
-
-    tx, ty = localT[:, 0], localT[:, 1]
-    btx = base(tx, lim_x)
-    bty = base(ty, limT_y)
-    T = sample(prev_p, tl_prev, btx, bty, tx - btx, ty - bty)
-    Gx = sample(gx_p, tl_prev, btx, bty, tx - btx, ty - bty)
-    Gy = sample(gy_p, tl_prev, btx, bty, tx - btx, ty - bty)
-    gxx = torch.sum(Gx * Gx, dim=(1, 2))
-    gxy = torch.sum(Gx * Gy, dim=(1, 2))
-    gyy = torch.sum(Gy * Gy, dim=(1, 2))
-    det = gxx * gyy - gxy * gxy
-    trace = gxx + gyy
-    me = (trace - torch.sqrt(torch.clamp(trace * trace - 4 * det, min=0.0))) * 0.5
-    good_g = (me / (win * win)) > min_eig
-    inv_det = torch.where(torch.abs(det) > 1e-9, 1.0 / det,
-                          torch.zeros_like(det))
-
-    lx, ly = local0[:, 0], local0[:, 1]
-
-    def oob(x, y):
-        return (x < 0.0) | (y < 0.0) | (x > lim_x) | (y > lim_y)
-
-    frozen = (frozen0[:, 0] > 0) | oob(lx, ly) | ~good_g
-    for _ in range(iters):
-        bx = base(lx, lim_x)
-        by = base(ly, lim_y)
-        I = sample(cur_p, tl_cur, bx, by, lx - bx, ly - by)
-        diff = T - I
-        bxs = torch.sum(diff * Gx, dim=(1, 2))
-        bys = torch.sum(diff * Gy, dim=(1, 2))
-        dx = (gyy * bxs - gxy * bys) * inv_det
-        dy = (gxx * bys - gxy * bxs) * inv_det
-        nlx = lx + dx
-        nly = ly + dy
-        stop = (dx * dx + dy * dy < eps * eps) | oob(nlx, nly)
-        lx = torch.where(frozen, lx, nlx)
-        ly = torch.where(frozen, ly, nly)
-        frozen = frozen | stop
-    return torch.stack([lx, ly], dim=-1), good_g.to(torch.int32)[:, None]
+    lx, ly, good = lk_cuda.klt_solve_ref(
+        lk_cuda.pad_flat((img_prev, gx, gy, img_cur), padded_hw),
+        padded_hw[1], lk_cuda.Frame(tl_prev, lim_x, float(pty - win - 1)),
+        (localT[:, 0], localT[:, 1]),
+        lk_cuda.Frame(tl_cur, lim_x, float(pcy - win - 1)),
+        (local0[:, 0], local0[:, 1]), frozen0, win=win, iters=iters, eps=eps,
+        min_eig=min_eig, counts=counts)
+    return torch.stack([lx, ly], dim=-1), good.to(torch.int32)[:, None]

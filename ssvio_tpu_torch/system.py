@@ -7,8 +7,10 @@ drive with `run_step(left, right, timestamp)` one frame at a time, or with
 the chunked engine (`engine.py`), fed by `prefetcher()`. Both run the
 engine's one per-frame step, so they give the same answers; they differ
 only in when the host records the frames. Local BA runs right after each
-steady keyframe insertion, on the System's device. What is not ported yet raises NotImplementedError naming
-its ROADMAP item: loop closing and relocalization (Queue 1 #12) and
+steady keyframe insertion, on the System's device: the current CUDA
+device unless the caller passes one (device="cpu" for the CPU; without a
+CUDA device, no device raises). What is not ported yet raises
+NotImplementedError naming its ROADMAP item: loop closing and relocalization (Queue 1 #12) and
 landmark-sharded BA over a mesh (#14).
 """
 
@@ -60,8 +62,8 @@ class System:
                               "Settings.loop_closing_open)", "#12")
         if mesh is not None:
             raise _not_ported("Landmark-sharded BA over a device mesh", "#14")
-        self.device = torch.device(device) if device is not None \
-            else torch.device("cpu")
+        # the GPU unless the caller asks for the CPU (device="cpu")
+        self.device = fe.resolve_device(device)
         # host-to-device copies of chunks ride their own stream, so an
         # upload overlaps the compute of the chunk before it
         self._upload_stream = (torch.cuda.Stream(self.device)

@@ -46,7 +46,7 @@ def render_sequence():
 
 def run_steps(s, L, R):
     """The port's per-frame run: (system, statuses after each frame)."""
-    sys_ = System(s, enable_backend=True)
+    sys_ = System(s, enable_backend=True, device="cpu")
     statuses = []
     for i in range(len(L)):
         sys_.run_step(L[i], R[i], 0.1 * i)
@@ -59,7 +59,7 @@ def run_chunks(s, L, R, sizes, pipelined=False):
     (system, statuses after each frame, from the chunks' FrameOut). With
     `pipelined`, uploads go through the prefetcher and chunk k+1 is
     dispatched before chunk k is collected, as bench.py drives it."""
-    sys_ = System(s, enable_backend=True)
+    sys_ = System(s, enable_backend=True, device="cpu")
     bounds = np.cumsum([0] + list(sizes))
     chunks = [(slice(a, b), [0.1 * i for i in range(a, b)])
               for a, b in zip(bounds[:-1], bounds[1:])]
@@ -163,7 +163,7 @@ def test_engine_from_fresh_carry(seq, per_frame):
     (u8 stacks promoted on the device)."""
     s, poses, L, R = seq
     a, st_a = per_frame
-    sys_ = System(s, enable_backend=True)
+    sys_ = System(s, enable_backend=True, device="cpu")
     engine = eng_t.Engine(sys_.frontend, enable_backend=True)
     carry = eng_t.fresh_carry(s, sys_.frontend, sys_.map)
     assert carry.status == fe_t.INITING
@@ -226,7 +226,7 @@ def test_prefetcher_contract(seq):
     depth bound, ValueError on an empty chunk, worker exceptions re-raised
     at close(); uploads keep uint8."""
     s, poses, L, R = seq
-    sys_ = System(s, enable_backend=True)
+    sys_ = System(s, enable_backend=True, device="cpu")
     pf = sys_.prefetcher(depth=2)
     pf.submit(L[:4], R[:4])
     pf.submit(L[4:8], R[4:8])

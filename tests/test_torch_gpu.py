@@ -8,13 +8,19 @@ host has neither), so it runs there without the suite's conftest:
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_gpu.py
 
 Each kernel is held against its plain torch version (`lk_cuda.lk_level_ref`,
-`lk_patch_cuda.lk_patch_ref`) on the same device. Tolerance on positions: 0.02 px on every track that
+`lk_patch_cuda.lk_patch_ref`, `lk_variants_cuda.*_ref`) on the same
+device. Tolerance on positions: 0.02 px on every track that
 converged before the iteration cap (the two sum the 121 window products in
 different orders and contract different FMAs, ~1e-6 px per step; a track
 at the |delta| < 0.01 px convergence edge can take one more sub-0.01 px
 step on one side only). A track still stepping at the cap amplifies that
 noise without bound, so it is left out of the position check. Flags must
-be equal.
+be equal. The bf16 kernel ("mm") keeps most tracks stepping to the cap
+(its windows carry about half an intensity unit of rounding noise,
+tests/test_torch_lk_variants.py), so after 30 iterations it is held on the
+tracks that agree with the plain version, at least 75% of the live tracks,
+and tightly where that noise cannot build up: its sampled windows and one
+step (test_mm_tight_checks_and_their_control_on_gpu).
 """
 
 import dataclasses
@@ -27,11 +33,13 @@ from ssvio_tpu_torch import frontend as fe
 from ssvio_tpu_torch.config import Settings
 from ssvio_tpu_torch.dataio import synthetic, synthetic_torch
 from ssvio_tpu_torch.ops import lk, lk_cuda, lk_patch_cuda, pyramid
+from ssvio_tpu_torch.ops import lk_variants_cuda as lkv
 from ssvio_tpu_torch.system import System
 
 pytestmark = pytest.mark.gpu
 
 POS_ATOL = 0.02          # px, see module docstring
+MM_MIN_AGREE_SHARE = 0.75
 H, W, N = 192, 256, 48
 KW = dict(win=11, iters=30, eps=0.01, min_eig=1e-4)
 
@@ -285,3 +293,163 @@ def test_chunk_path_on_gpu_matches_run_step():
     _, ta = a.frame_trajectory()
     _, tb = b.frame_trajectory()
     np.testing.assert_allclose(tb[:, :, 3], ta[:, :, 3], atol=1e-3)
+
+
+# the variant kernels: (counter, wrapper, plain version, keywords); ymm and
+# pkmm name one function, lk_level_pk
+VARIANTS = {
+    "sw": ("lk_level_sw", lkv.lk_level_sw, lkv.lk_level_sw_ref, {}),
+    "pk": ("lk_level_pk", lkv.lk_level_pk, lkv.lk_level_pk_ref, {}),
+    "mm": ("lk_level_mm", lkv.lk_level_mm, lkv.lk_level_mm_ref,
+           {"use_bf16": True}),
+    "mm_f32": ("lk_level_mm_f32", lkv.lk_level_mm, lkv.lk_level_mm_ref,
+               {"use_bf16": False}),
+}
+COUNTER = {"sw": "lk_level_sw", "ymm": "lk_level_pk", "pkmm": "lk_level_pk",
+           "mm": "lk_level_mm", "mm_f32": "lk_level_mm_f32"}
+# mm where rounding noise cannot build up (chip_smoke.py, MM_*): window
+# values within this many float32 ulps of the window's largest magnitude
+# of the plain blend's (one bf16 rounding the other way is ~2^15 of them),
+# one step within this many px on every live track
+MM_WINDOW_ULPS = 2.0
+MM_STEP_TOL_PX = 1e-4
+
+
+def _window_ulps(got, want):
+    """chip_smoke.py::window_ulps."""
+    scale = want.abs().amax(dim=(1, 2), keepdim=True).clamp_min(2.0 ** -126)
+    return float(((got - want).abs() / (scale * 2.0 ** -23)).max())
+
+
+def _variant_level(dev):
+    """One 190x250 level with the 192x256 bounds of the padded plane,
+    N = 45 (the last lockstep group of #5 ragged), 4 keypoints frozen."""
+    img, img2, pts = _scene(214, (3.1, -2.2))
+    img_t = torch.from_numpy(img)
+    gx, gy = pyramid.sobel_gradients(img_t)
+    planes = [t[:190, :250].contiguous().to(dev)
+              for t in (img_t, gx, gy, torch.from_numpy(img2))]
+    p = torch.from_numpy(pts[:45]).to(dev)
+    frozen0 = torch.zeros((45, 1), dtype=torch.int32, device=dev)
+    frozen0[:4] = 1
+    return (*planes, p, p, frozen0)
+
+
+@pytest.mark.parametrize("flavour", list(VARIANTS))
+def test_variant_kernel_matches_plain_version_on_gpu(flavour):
+    """Kernels #3-#5 on _variant_level against their plain versions; sw
+    also against kernel #1, whose values it takes."""
+    dev = _device()
+    counter, fn, ref, extra = VARIANTS[flavour]
+    args = _variant_level(dev)
+    p, frozen0 = args[4], args[6]
+    kw = dict(KW, padded_hw=(192, 256), **extra)
+    before = lkv.LAUNCHES[counter]
+    out_k, flag_k = fn(*args, **kw)
+    torch.cuda.synchronize()
+    assert lkv.LAUNCHES[counter] == before + 1
+    out_r, flag_r = ref(*args, **kw)
+    assert lkv.LAUNCHES[counter] == before + 1   # the plain version: no count
+    assert torch.equal(flag_k, flag_r)
+    assert torch.isfinite(out_k).all()
+    # frozen keypoints keep their guess (less r, plus r: an ulp or so)
+    assert torch.allclose(out_k[:4], p[:4], rtol=0, atol=1e-4)
+    live = (flag_k[:, 0] > 0) & (frozen0[:, 0] == 0)
+    d = torch.max(torch.abs(out_k - out_r), dim=-1).values
+    if flavour == "mm":
+        assert float((d[live] <= POS_ATOL).float().mean()) >= MM_MIN_AGREE_SHARE
+        return
+    conv = torch.all(out_r == ref(*args, **dict(kw, iters=KW["iters"] - 1))[0],
+                     dim=-1)
+    assert int((live & conv).sum()) >= 45 // 2
+    assert float(d[live & conv].max()) < POS_ATOL
+    if flavour == "sw":
+        out_1, _ = lk_cuda.lk_level(*args, **dict(KW, padded_hw=(192, 256)))
+        assert float(torch.max(torch.abs(out_k - out_1))) == 0.0
+
+
+def test_mm_tight_checks_and_their_control_on_gpu():
+    """mm's kernel against its plain version where noise cannot build up:
+    the sampled windows (template top-lefts on the three previous planes,
+    search top-lefts on the current one) within MM_WINDOW_ULPS, and one
+    step within MM_STEP_TOL_PX on every live track. Control: the mm_f32
+    kernel, which leaves out the bf16 roundings, held against mm's plain
+    version, fails both and the share rule."""
+    dev = _device()
+    args = _variant_level(dev)
+    planes, p, frozen0 = args[:4], args[4], args[6]
+    r = KW["win"] // 2
+    tl = torch.clamp(p - r, min=0.0).contiguous()
+    kw = dict(KW, padded_hw=(192, 256))
+    one = dict(kw, iters=1)
+    step_r, flag_r = lkv.lk_level_mm_ref(*args, **one, use_bf16=True)
+    out_r, _ = lkv.lk_level_mm_ref(*args, **kw, use_bf16=True)
+    live = (flag_r[:, 0] > 0) & (frozen0[:, 0] == 0)
+    got = {}
+    for tag, use_bf16 in (("mm", True), ("control", False)):
+        ulps = [_window_ulps(
+            lkv.mm_windows(pl, tl, win=KW["win"], use_bf16=use_bf16),
+            lkv.mm_windows_ref(pl, tl, win=KW["win"])) for pl in planes]
+        step_k, _ = lkv.lk_level_mm(*args, **one, use_bf16=use_bf16)
+        out_k, _ = lkv.lk_level_mm(*args, **kw, use_bf16=use_bf16)
+        d = torch.max(torch.abs(out_k - out_r), dim=-1).values[live]
+        got[tag] = (max(ulps),
+                    float(torch.abs(step_k - step_r)[live].max()),
+                    float((d <= POS_ATOL).float().mean()))
+    mm, ctl = got["mm"], got["control"]
+    assert mm[0] <= MM_WINDOW_ULPS and mm[1] <= MM_STEP_TOL_PX \
+        and mm[2] >= MM_MIN_AGREE_SHARE, got
+    assert ctl[0] > MM_WINDOW_ULPS and ctl[1] > MM_STEP_TOL_PX \
+        and ctl[2] < MM_MIN_AGREE_SHARE, got
+    with pytest.raises(ValueError):          # a top-left off the plane
+        lkv.mm_windows(planes[0], tl - 40.0, win=KW["win"])
+
+
+@pytest.mark.parametrize("flavour", list(COUNTER))
+def test_track_launches_the_flavours_kernel_once_per_level(flavour):
+    """lk.track on CUDA tensors ("auto") with the flavour goes through the
+    flavour's kernel at every level and never through kernel #1."""
+    dev = _device()
+    counter = COUNTER[flavour]
+    img, img2, pts = _scene(215, (4.0, 1.5))
+    pyr = [[t.to(dev) for t in pyramid.build_lk_pyramid(torch.from_numpy(a), 3)]
+           for a in (img, img2)]
+    p = torch.from_numpy(pts).to(dev)
+    valid = torch.ones(N, dtype=torch.bool, device=dev)
+    b1, bv = lk_cuda.LAUNCHES, lkv.LAUNCHES[counter]
+    out_k, ok_k, _ = lk.track(pyr[0], pyr[1], p, p, valid,
+                              lk.LKParams(kernel=flavour))
+    torch.cuda.synchronize()
+    assert (lk_cuda.LAUNCHES, lkv.LAUNCHES[counter]) == (b1, bv + 3)
+    assert int(ok_k.sum()) >= 0.8 * N
+    flow = (out_k - p)[ok_k].cpu().numpy()
+    np.testing.assert_allclose(np.median(flow, axis=0), [4.0, 1.5], atol=0.2)
+
+
+@pytest.mark.parametrize("flavour", list(VARIANTS))
+def test_variant_wrapper_rejects_what_the_kernel_does_not_take(flavour):
+    dev = _device()
+    counter, fn, _, extra = VARIANTS[flavour]
+    img, img2, pts = _scene(216, (1.0, 1.0))
+    img_t = torch.from_numpy(img)
+    gx, gy = pyramid.sobel_gradients(img_t)
+    planes = [t.to(dev) for t in (img_t, gx, gy, torch.from_numpy(img2))]
+    p = torch.from_numpy(pts).to(dev)
+    frozen0 = torch.zeros((N, 1), dtype=torch.int32, device=dev)
+    kw = dict(KW, padded_hw=(H, W), **extra)
+    before = dict(lkv.LAUNCHES)
+    bad = [
+        ((planes[0].double(), *planes[1:], p, p, frozen0), kw),
+        ((planes[0].to(torch.bfloat16), *planes[1:], p, p, frozen0), kw),
+        ((planes[0].t().contiguous().t(), *planes[1:], p, p, frozen0),
+         kw),                                                  # strided
+        ((*planes, p[:-1], p, frozen0), kw),                    # shape
+        ((*planes, p.cpu(), p, frozen0), kw),                   # device
+        ((*planes, p, p, frozen0.long()), kw),                  # dtype
+        ((*planes, p, p, frozen0), dict(kw, win=13)),           # 169 pixels
+        ((*planes, p, p, frozen0), dict(kw, padded_hw=(H - 8, W))),
+    ]
+    for args, k in bad:
+        with pytest.raises(ValueError):
+            fn(*args, **k)
+    assert lkv.LAUNCHES == before

@@ -24,7 +24,8 @@ from ssvio_tpu.ops import lk as lk_j
 from ssvio_tpu.ops import lk_pallas
 from ssvio_tpu.ops import pyramid as pyramid_j
 from ssvio_tpu_torch.ops import lk as lk_t
-from ssvio_tpu_torch.ops import _nvcc, lk_cuda, lk_patch_cuda
+from ssvio_tpu_torch.ops import (_nvcc, lk_cuda, lk_patch_cuda,
+                                 lk_variants_cuda)
 from test_torch_ops import _texture, one_torch_thread  # noqa: F401
 
 POS_ATOL = 0.02          # px, see module docstring
@@ -157,21 +158,25 @@ def test_cuda_dispatch_raises_and_never_falls_back(monkeypatch, tmp_path):
     p = torch.from_numpy(pts)
     v = torch.ones(N, dtype=torch.bool)
     # "cuda" demands the kernel: CPU tensors raise instead of taking a
-    # plain version
-    with pytest.raises(RuntimeError, match="needs CUDA tensors"):
-        lk_t.track(pt1, pt2, p, p, v, lk_t.LKParams(backend="cuda"))
-    # no nvcc reachable: building the kernel library raises
+    # plain version, whatever the flavour
+    for kern in lk_t.FLAVOURS:
+        with pytest.raises(RuntimeError, match="needs CUDA tensors"):
+            lk_t.track(pt1, pt2, p, p, v,
+                       lk_t.LKParams(backend="cuda", kernel=kern))
+    # a flavour the port does not know raises (the JAX package would run
+    # 'serial' for it)
+    with pytest.raises(ValueError, match="not in"):
+        lk_t.track(pt1, pt2, p, p, v, lk_t.LKParams(kernel="roll"))
+    # no nvcc reachable: building any kernel library raises
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.delenv("CUDA_HOME", raising=False)
     monkeypatch.setattr(_nvcc, "_CUDA_ROOTS", ())
     monkeypatch.setattr(_nvcc, "_BUILD_DIR", tmp_path / "build")
     monkeypatch.setattr(lk_cuda, "_lib", None)
-    with pytest.raises(RuntimeError, match="nvcc not found"):
-        _nvcc.build(lk_cuda.SRC)
-    # unported kernel flavors raise rather than run 'serial'
-    for kern in ("sw", "ymm", "pkmm", "mm", "mm_f32"):
-        with pytest.raises(NotImplementedError, match="Queue 2"):
-            lk_t.track(pt1, pt2, p, p, v, lk_t.LKParams(kernel=kern))
+    monkeypatch.setattr(lk_variants_cuda, "_fns", {})
+    for src in (lk_cuda.SRC, *lk_variants_cuda.SRC.values()):
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            _nvcc.build(src)
 
 
 def test_wrapper_on_cpu_is_the_plain_version():

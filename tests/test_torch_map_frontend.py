@@ -137,7 +137,8 @@ def jax_state():
     for i in range(4):
         sj.run_step(L[i], R[i], 0.1 * i)
     assert sj.status == fe_j.TRACKING_GOOD
-    front_t = fe_t.Frontend(interop.settings(s), sj.w, sj.h, W, H)
+    front_t = fe_t.Frontend(interop.settings(s), sj.w, sj.h, W, H,
+                            device="cpu")
     pyr_l = sj.frontend.build_pyramid(sj._pad(L[4]))
     pyr_r = sj.frontend.build_pyramid(sj._pad(R[4]))
     return sj, front_t, pyr_l, pyr_r

@@ -16,6 +16,7 @@ it by centimetres.
 
 import numpy as np
 import pytest
+import torch
 
 from ssvio_tpu.dataio import synthetic
 from ssvio_tpu.eval import ate
@@ -42,7 +43,8 @@ def runs():
     out = {"gt": poses}
     for tag, sys_ in (("jax", SystemJ(s, enable_loop_closing=False)),
                       ("torch", SystemT(interop.settings(s),
-                                        enable_loop_closing=False))):
+                                        enable_loop_closing=False,
+                                        device="cpu"))):
         est, status, kfs = [], [], []
         for i in range(N_FRAMES):
             est.append(sys_.run_step(np.array(L[i]), np.array(R[i]), 0.1 * i))
@@ -92,6 +94,21 @@ def test_slice_tum_export_and_unported_entry_points(runs, tmp_path):
             getattr(t, name)([], [])
     s = interop.settings(small_settings())
     with pytest.raises(NotImplementedError, match="#12"):
-        SystemT(s, enable_loop_closing=True)
+        SystemT(s, enable_loop_closing=True, device="cpu")
     with pytest.raises(NotImplementedError, match="#14"):
-        SystemT(s, enable_loop_closing=False, mesh=object())
+        SystemT(s, enable_loop_closing=False, mesh=object(),
+                device="cpu")
+
+
+def test_system_runs_on_the_gpu_unless_asked_for_the_cpu(monkeypatch):
+    """No device means the CUDA device; without one, System and Frontend
+    raise and name the fix instead of running on the CPU."""
+    s = interop.settings(small_settings())
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for build in (lambda: SystemT(s, enable_loop_closing=False),
+                  lambda: fe_t.Frontend(s, W, H)):
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            build()
+    sys_ = SystemT(s, enable_loop_closing=False, device="cpu")
+    assert sys_.device == torch.device("cpu")
+    assert sys_.frontend.device == torch.device("cpu")
