@@ -31,7 +31,7 @@ extern "C" int ssvio_lk_level_sw(const float* prev, const float* gx,
                                  float* pts_out, int* flag, int n, int win,
                                  int iters, float eps, float min_eig,
                                  void* stream) {
-  return launch_level<StagedSampler, kWarpsPerBlock, false>(
+  return launch_level<StagedSampler, kWarpsPerBlock>(
       prev, gx, gy, cur, H, W, Hb, Wb, pts_prev, pts_guess, frozen0, pts_out,
-      flag, n, win, iters, eps, min_eig, stream);
+      flag, n, win, iters, eps, min_eig, nullptr, stream);
 }

@@ -46,9 +46,10 @@ lk_patch_kernel(const float* __restrict__ prev, const float* __restrict__ gx,
   float lx = local0[2 * kp];
   float ly = local0[2 * kp + 1];
   bool good;
-  klt_solve<false>(GlobalSampler(H, W, lane, win, nullptr), prev, gx, gy,
-                   cur, win, iters, eps, min_eig, tmpl, localT[2 * kp],
-                   localT[2 * kp + 1], search, frozen0[kp] > 0, lx, ly, good);
+  GlobalSampler smp(H, W, lane, win, nullptr);
+  klt_solve(smp, prev, gx, gy, cur, win, iters, eps, min_eig, tmpl,
+            localT[2 * kp], localT[2 * kp + 1], search, frozen0[kp] > 0, lx,
+            ly, good);
   if (lane == 0) {
     local_out[2 * kp] = lx;
     local_out[2 * kp + 1] = ly;

@@ -24,9 +24,11 @@ _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ssvio_tpu_torch"
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 _CUDA_ROOTS = ("/usr/local/cuda",)   # searched after PATH and $CUDA_HOME
-# window pixels of the shared KLT solve: 4 per lane of one warp
-# (csrc/lk_klt.cuh)
-MAX_WINDOW_PIXELS = 128
+# the largest window each kernel takes (csrc/lk_klt.cuh: 4 pixels a lane
+# for kernels #1-#3, 8 for #4 and #5, the JAX `pk` kernel's limit and the
+# 16-wide blocks of JAX's `mm`), by launch counter
+MAX_WIN = {"lk_level": 11, "lk_patch": 11, "lk_level_sw": 11,
+           "lk_level_pk": 16, "lk_level_mm": 16, "lk_level_mm_f32": 16}
 
 build_info: dict = {}     # source stem -> path, seconds, ptxas log
 
@@ -74,6 +76,12 @@ def build(src: Path) -> Path:
     build_info[src.stem] = dict(path=str(out), seconds=time.perf_counter() - t0,
                                 log=(proc.stdout + proc.stderr).strip())
     return out
+
+
+def check_window(kernel: str, win: int) -> None:
+    """Raise unless `kernel` (a key of MAX_WIN) takes a win x win window."""
+    if not 1 <= win <= MAX_WIN[kernel]:
+        raise ValueError(f"{kernel}: win={win} outside 1..{MAX_WIN[kernel]}")
 
 
 def check(name: str, t: torch.Tensor, dtype, shape, device) -> None:

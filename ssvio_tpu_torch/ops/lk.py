@@ -18,9 +18,8 @@ function (ROADMAP Queue 3):
     shared memory; kernel #1's values);
   - "ymm", "pkmm": kernel #4, `lk_variants_cuda.lk_level_pk` (separable:
     y blend, then x; one function for both);
-  - "mm", "mm_f32": kernel #5, `lk_variants_cuda.lk_level_mm` (lockstep
-    groups of 8; "mm" samples By S Bx^T on the tensor cores in bf16,
-    "mm_f32" in float32);
+  - "mm", "mm_f32": kernel #5, `lk_variants_cuda.lk_level_mm` ("mm"
+    samples By S Bx^T on the tensor cores in bf16, "mm_f32" in float32);
 - kernel #2's function (`lk_patch_cuda.lk_patch`, the JAX package's
   HBM-patch Pallas kernel): bounded by a 256-lane patch box at a (128,
   8)-aligned origin. The JAX package takes it, whatever the flavour, where

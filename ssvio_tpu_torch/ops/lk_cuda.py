@@ -46,7 +46,7 @@ import torch
 import torch.nn.functional as F
 
 from ssvio_tpu_torch.ops import _nvcc
-from ssvio_tpu_torch.ops._nvcc import MAX_WINDOW_PIXELS, check
+from ssvio_tpu_torch.ops._nvcc import check, check_window
 
 LAUNCHES = 0          # kernel launches made by lk_level (CUDA tensors only)
 
@@ -81,9 +81,10 @@ def launch_level(fn, name: str, planes, pts_prev: torch.Tensor,
                  extra=()) -> Tuple[torch.Tensor, torch.Tensor, bool]:
     """Check the inputs of a kernel with kernel #1's function and launch
     it: `fn()` returns its ctypes entry point (LEVEL_ARGTYPES, then
-    `extra` ints before the stream). Planes [H, W] of `plane_dtype`.
-    Returns (pts_out, flag, launched); raises on anything the kernel does
-    not take and on a failed launch."""
+    `extra` arguments before the stream). Planes [H, W] of `plane_dtype`;
+    the caller has checked the window against its kernel's limit
+    (`_nvcc.check_window`). Returns (pts_out, flag, launched); raises on
+    anything else the kernel does not take and on a failed launch."""
     img_cur = planes[3]
     dev = img_cur.device
     if dev.type != "cuda":
@@ -96,9 +97,6 @@ def launch_level(fn, name: str, planes, pts_prev: torch.Tensor,
     check("pts_prev", pts_prev, torch.float32, (n, 2), dev)
     check("pts_guess", pts_guess, torch.float32, (n, 2), dev)
     check("frozen0", frozen0, torch.int32, (n, 1), dev)
-    if win < 1 or win * win > MAX_WINDOW_PIXELS:
-        raise ValueError(f"{name}: win={win} outside 1..11 "
-                         f"(win*win <= {MAX_WINDOW_PIXELS})")
     if Hb < H or Wb < W or Hb - win - 2 < 0 or Wb - win - 2 < 0:
         raise ValueError(f"{name}: padded dims {padded_hw} do not cover "
                          f"the level {(H, W)} and a {win}x{win} window")
@@ -131,8 +129,10 @@ def lk_level(img_prev: torch.Tensor, gx: torch.Tensor, gy: torch.Tensor,
     Returns (pts_out [N, 2] float32, good_flag [N, 1] int32).
 
     CUDA tensors launch the kernel or raise; CPU tensors take lk_level_ref.
+    Either raises for win > 11, the kernel's limit.
     """
     global LAUNCHES
+    check_window("lk_level", win)
     kw = dict(win=win, iters=iters, eps=eps, min_eig=min_eig,
               padded_hw=padded_hw)
     planes = (img_prev, gx, gy, img_cur)
@@ -182,7 +182,9 @@ def klt_solve_ref(planes, wb: int, ft: Frame, t_xy, fc: Frame, l_xy,
 
     With `counts`, counts what a kernel must do on these inputs: adds to
     counts["kp_iters"] (a tensor) the keypoint-iterations it executes and
-    to counts["live0"] the keypoints live when the loop starts, and
+    to counts["live0"] the keypoints live when the loop starts, raises
+    counts["max_iters"] (a tensor) to the most iterations of any keypoint
+    (the length of the level's longest chain), and
     marks in counts["touched"] (four bool masks over the flat planes) the
     pixels the function needs: the gx and gy template windows of every
     keypoint (the gate of each flag), the prev template window of each
@@ -240,10 +242,14 @@ def klt_solve_ref(planes, wb: int, ft: Frame, t_xy, fc: Frame, l_xy,
         touched[1][t_win[0]] = True
         touched[2][t_win[0]] = True
         touched[0][t_win[0][~frozen]] = True
+        n_it = torch.zeros_like(frozen, dtype=torch.int32)
     for _ in range(iters):
         c_win = window(fc, lx, ly)
         if counts is not None:
             counts["kp_iters"] = counts.get("kp_iters", 0) + (~frozen).sum()
+            n_it += ~frozen
+            counts["max_iters"] = torch.maximum(
+                counts.get("max_iters", n_it.max()), n_it.max())
             touched[3][c_win[0][~frozen]] = True
         I = sample(cur_p, *c_win)
         diff = T - I

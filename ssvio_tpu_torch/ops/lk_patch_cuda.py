@@ -39,7 +39,7 @@ from typing import Optional, Tuple
 import torch
 
 from ssvio_tpu_torch.ops import _nvcc, lk_cuda
-from ssvio_tpu_torch.ops._nvcc import MAX_WINDOW_PIXELS, check
+from ssvio_tpu_torch.ops._nvcc import check, check_window
 
 LAUNCHES = 0          # kernel launches made by lk_patch (CUDA tensors only)
 LANES = 256           # patch width (lk_pallas.LANES)
@@ -101,9 +101,7 @@ def lk_patch(img_prev: torch.Tensor, gx: torch.Tensor, gy: torch.Tensor,
     for name, t in (("localT", localT), ("local0", local0)):
         check(name, t, torch.float32, (n, 2), dev)
     check("frozen0", frozen0, torch.int32, (n, 1), dev)
-    if win < 1 or win * win > MAX_WINDOW_PIXELS:
-        raise ValueError(f"lk_patch: win={win} outside 1..11 "
-                         f"(win*win <= {MAX_WINDOW_PIXELS})")
+    check_window("lk_patch", win)
     if pty % 8 or pcy % 8 or pty < win + 2 or pcy < win + 2:
         raise ValueError(f"lk_patch: patch rows pty={pty}, pcy={pcy} must be "
                          f"multiples of 8 and hold a {win}x{win} window")

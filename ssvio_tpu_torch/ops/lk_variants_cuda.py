@@ -12,33 +12,42 @@ plain versions share `lk_cuda.klt_solve_ref` (a `blend` each):
 
 - #3, flavour sw: `lk_level_vmem_sw` (lk_pallas_variants.py:167) ->
   csrc/lk_level_sw.cu. The (win+1)^2 window staged in shared memory, then
-  kernel #1's four-corner blend: kernel #1's values.
+  kernel #1's four-corner blend: kernel #1's values. win <= 11.
 - #4, flavours ymm and pkmm: `lk_level_vmem_pk` (:104) ->
-  csrc/lk_level_pk.cu. Staged, then separable: y blend, then x.
+  csrc/lk_level_pk.cu. Separable: y blend, then x, in registers. win <= 16.
 - #5, flavours mm and mm_f32: `lk_level_vmem_mm` (:416) ->
-  csrc/lk_level_mm.cu. Lockstep groups of 8 keypoints; mm samples
-  W = By S Bx^T on the tensor cores in bf16 (planes, weights and R rounded
-  to bf16, f32 accumulation), mm_f32 takes the separable f32 blend.
+  csrc/lk_level_mm.cu. mm samples W = By S Bx^T on register-resident
+  mma.sync fragments in bf16 (planes, weights and R rounded to bf16, f32
+  accumulation), mm_f32 takes #4's separable f32 sampler. win <= 16.
 
-What bounds them on the card: latency, as kernel #1 (`lk_cuda.py`): a
-512-keypoint level is 512 warps, about 4 per SM, each iteration a dependent
-chain of L2 reads, a 5-step shuffle reduction and a 2x2 solve. Staging the
-window reads each pixel once per window instead of up to four times, but
-costs two __syncwarp a window: on the card #3 and #4 take 7-8 us a launch
-more than kernel #1 (PERF.md). The lockstep groups of #5 wait for their
-slowest keypoint. The source notes (`csrc/*.cu`) say what each design does
-about it.
+What bounds them on the card: latency (`lk_cuda.py`). A 512-keypoint
+level is 512 warps, about 4 an SM; each iteration is one dependent chain
+(sample the window, two 5-step shuffle reductions, a 2x2 solve), and the
+level lasts as long as its slowest keypoint's chain. #3 restages each
+window through shared memory (two __syncwarp a window) and is slower than
+#1's L2 reads. #4 and #5 instead copy a search region of `cur` around the
+first search window into the warp's shared memory once a level
+(cp.async), sample every window inside it from there with no barrier in
+the loop (L2 outside it), and let each keypoint exit on its own: the JAX
+`mm` kernel's lockstep groups of 8 change no keypoint's answer (a frozen
+keypoint keeps its position) and buy nothing on a card where a warp holds
+one keypoint. mm keeps every operand of its two products in registers.
+The source notes (`csrc/*.cu`) give the details.
 
-The window limits differ from the JAX variants': the shared solve holds
-win * win <= 128 (win <= 11) where JAX allows `sw` <= 23, `pk` <= 16 and
-puts no guard on `mm` (ROADMAP Queue 3). The wrappers raise above it.
+Window limits (`_nvcc.MAX_WIN`): #3 takes win <= 11 where JAX's `sw` takes
+23; #4 and #5 take JAX's 16, where JAX's `mm` has no guard and would
+silently drop window rows above it (ROADMAP Queue 3). Each wrapper raises
+above its limit, on either device.
 
 Each wrapper launches its kernel for CUDA tensors (or raises) and takes
 its plain version only for CPU tensors. Each kernel has its own launch
-counter (`LAUNCHES`); nothing else increments it. `mm_windows` runs #5's
-samplers alone, for the checks that hold mm's tensor-core windows against
-the plain blend (chip_smoke.py, tests/test_torch_gpu.py); no path calls
-it.
+counter (`LAUNCHES`); nothing else increments it. The #4 and #5 wrappers
+take `stats`, an int32 [3] CUDA tensor the kernel adds to: search windows
+read outside the staged region, keypoint-iterations, and (a maximum) the
+most iterations of any keypoint (chip_smoke.py; the path passes none).
+`mm_windows` runs #5's samplers alone, for the checks that hold mm's
+tensor-core windows against the plain blend (chip_smoke.py,
+tests/test_torch_gpu.py); no path calls it.
 """
 
 from __future__ import annotations
@@ -73,11 +82,21 @@ def _entry(stem: str):
     """The level entry point `ssvio_<stem>` of csrc/<stem>.cu."""
     if stem not in _fns:
         fn = getattr(_library(stem), f"ssvio_{stem}")
-        extra = [ctypes.c_int] if stem == "lk_level_mm" else []   # use_bf16
+        extra = {"lk_level_sw": [],
+                 "lk_level_pk": [ctypes.c_void_p],                 # stats
+                 "lk_level_mm": [ctypes.c_int, ctypes.c_void_p],   # use_bf16
+                 }[stem]
         fn.argtypes = lk_cuda.LEVEL_ARGTYPES[:-1] + extra + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fns[stem] = fn
     return _fns[stem]
+
+
+def _stats_ptr(stats: Optional[torch.Tensor], dev) -> Optional[int]:
+    if stats is None:
+        return None
+    _nvcc.check("stats", stats, torch.int32, (3,), dev)
+    return stats.data_ptr()
 
 
 def _launch(counter: str, stem: str, planes, pts_prev, pts_guess, frozen0,
@@ -97,7 +116,8 @@ def lk_level_sw(img_prev: torch.Tensor, gx: torch.Tensor, gy: torch.Tensor,
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel #3 (flavour "sw"), `lk_level_vmem_sw` semantics; the contract
     of `lk_cuda.lk_level`. CUDA tensors launch the kernel or raise; CPU
-    tensors take lk_level_sw_ref."""
+    tensors take lk_level_sw_ref; either raises for win > 11."""
+    _nvcc.check_window("lk_level_sw", win)
     kw = dict(win=win, iters=iters, eps=eps, min_eig=min_eig,
               padded_hw=padded_hw)
     planes = (img_prev, gx, gy, img_cur)
@@ -135,6 +155,7 @@ def lk_level_pk(img_prev: torch.Tensor, gx: torch.Tensor, gy: torch.Tensor,
                 pts_guess: torch.Tensor, frozen0: torch.Tensor, *, win: int,
                 iters: int, eps: float, min_eig: float,
                 padded_hw: Tuple[int, int], x_mm: bool = False,
+                stats: Optional[torch.Tensor] = None,
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel #4 (flavours "ymm" and "pkmm"), `lk_level_vmem_pk` semantics;
     the contract of `lk_cuda.lk_level`.
@@ -145,14 +166,18 @@ def lk_level_pk(img_prev: torch.Tensor, gx: torch.Tensor, gy: torch.Tensor,
     output of either is a sum of exactly two non-zero products,
     (1-fx) r[j] + fx r[j+1], so both are one function, and the card has no
     lane roll to avoid. CUDA tensors launch the kernel or raise; CPU tensors
-    take lk_level_pk_ref."""
+    take lk_level_pk_ref; either raises for win > 16. `stats`: see the
+    module note (CUDA only)."""
+    _nvcc.check_window("lk_level_pk", win)
     kw = dict(win=win, iters=iters, eps=eps, min_eig=min_eig,
               padded_hw=padded_hw)
     planes = (img_prev, gx, gy, img_cur)
     if img_cur.device.type == "cpu":
+        if stats is not None:
+            raise ValueError("lk_level_pk: stats are the kernel's (CUDA)")
         return lk_level_pk_ref(*planes, pts_prev, pts_guess, frozen0, **kw)
     return _launch("lk_level_pk", "lk_level_pk", planes, pts_prev, pts_guess,
-                   frozen0, kw)
+                   frozen0, kw, extra=(_stats_ptr(stats, img_cur.device),))
 
 
 def lk_level_pk_ref(img_prev, gx, gy, img_cur, pts_prev, pts_guess, frozen0,
@@ -188,17 +213,23 @@ def lk_level_mm(img_prev: torch.Tensor, gx: torch.Tensor, gy: torch.Tensor,
                 pts_guess: torch.Tensor, frozen0: torch.Tensor, *, win: int,
                 iters: int, eps: float, min_eig: float,
                 padded_hw: Tuple[int, int], use_bf16: bool = True,
+                stats: Optional[torch.Tensor] = None,
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel #5 (flavours "mm", use_bf16, and "mm_f32"),
     `lk_level_vmem_mm` semantics; the contract of `lk_cuda.lk_level`, on
     float32 planes. With use_bf16 the wrapper casts the four planes to bf16
     before the launch, as the JAX wrapper does (lk_pallas_variants.py:459).
     CUDA tensors launch the kernel or raise; CPU tensors take
-    lk_level_mm_ref."""
+    lk_level_mm_ref; either raises for win > 16. `stats`: see the module
+    note (CUDA only)."""
+    counter = "lk_level_mm" if use_bf16 else "lk_level_mm_f32"
+    _nvcc.check_window(counter, win)
     kw = dict(win=win, iters=iters, eps=eps, min_eig=min_eig,
               padded_hw=padded_hw)
     planes = (img_prev, gx, gy, img_cur)
     if img_cur.device.type == "cpu":
+        if stats is not None:
+            raise ValueError(f"{counter}: stats are the kernel's (CUDA)")
         return lk_level_mm_ref(*planes, pts_prev, pts_guess, frozen0,
                                use_bf16=use_bf16, **kw)
     dev = img_cur.device
@@ -206,9 +237,9 @@ def lk_level_mm(img_prev: torch.Tensor, gx: torch.Tensor, gy: torch.Tensor,
         _nvcc.check(name, t, torch.float32, img_cur.shape, dev)
     if use_bf16:
         planes = tuple(p.to(torch.bfloat16) for p in planes)
-    return _launch("lk_level_mm" if use_bf16 else "lk_level_mm_f32",
-                   "lk_level_mm", planes, pts_prev, pts_guess, frozen0, kw,
-                   plane_dtype=planes[0].dtype, extra=(int(use_bf16),))
+    return _launch(counter, "lk_level_mm", planes, pts_prev, pts_guess,
+                   frozen0, kw, plane_dtype=planes[0].dtype,
+                   extra=(int(use_bf16), _stats_ptr(stats, dev)))
 
 
 def lk_level_mm_ref(img_prev, gx, gy, img_cur, pts_prev, pts_guess, frozen0,
@@ -219,8 +250,8 @@ def lk_level_mm_ref(img_prev, gx, gy, img_cur, pts_prev, pts_guess, frozen0,
     """Plain version of kernel #5. use_bf16: the planes rounded to bf16 and
     the sampler blend_mm_bf16 (the three bf16 roundings of the JAX kernel);
     else the separable float32 sampler. A masked loop of exactly `iters`
-    steps, as lk_cuda.lk_level_ref runs: per keypoint the lockstep group's
-    answer."""
+    steps, as lk_cuda.lk_level_ref runs: per keypoint the answer of the
+    JAX kernel's lockstep group, which is each keypoint's own."""
     planes = (img_prev, gx, gy, img_cur)
     if use_bf16:
         planes = tuple(bf16(p) for p in planes)
@@ -232,14 +263,17 @@ def lk_level_mm_ref(img_prev, gx, gy, img_cur, pts_prev, pts_guess, frozen0,
 
 
 def mm_windows(plane: torch.Tensor, tl: torch.Tensor, *, win: int,
-               use_bf16: bool = True) -> torch.Tensor:
+               use_bf16: bool = True, staged: bool = False) -> torch.Tensor:
     """The windows kernel #5's sampler takes at top-lefts tl [n, 2] (x, y)
     of `plane` [H, W] float32: [n, win, win] float32. With use_bf16 the
     plane is rounded to bf16 first, as lk_level_mm does, and sampled on the
-    tensor cores; else the separable float32 sampler of "mm_f32". A check
+    tensor cores; else the separable float32 sampler of "mm_f32". With
+    `staged` each window is read from a search region staged around it
+    (the solve's search path), else from L2 (its template path). A check
     of the sampler alone, run by no path: no launch is counted. CUDA
     tensors launch csrc/lk_level_mm.cu::windows_kernel or raise; CPU
-    tensors take mm_windows_ref."""
+    tensors take mm_windows_ref. Raises for win > 16."""
+    _nvcc.check_window("lk_level_mm", win)
     if plane.device.type == "cpu":
         return mm_windows_ref(plane, tl, win=win, use_bf16=use_bf16)
     dev = plane.device
@@ -247,8 +281,6 @@ def mm_windows(plane: torch.Tensor, tl: torch.Tensor, *, win: int,
     n = tl.shape[0]
     _nvcc.check("plane", plane, torch.float32, (H, W), dev)
     _nvcc.check("tl", tl, torch.float32, (n, 2), dev)
-    if not 1 <= win <= 11:
-        raise ValueError(f"mm_windows: win={win} outside 1..11")
     if n and not bool(((tl >= 0) & (tl < torch.tensor(
             [W, H], dtype=tl.dtype, device=dev))).all()):
         raise ValueError("mm_windows: a top-left outside the plane")
@@ -257,11 +289,12 @@ def mm_windows(plane: torch.Tensor, tl: torch.Tensor, *, win: int,
     out = torch.empty((n, win, win), dtype=torch.float32, device=dev)
     fn = _library("lk_level_mm").ssvio_lk_mm_windows
     fn.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 2
-                   + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
+                   + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     rc = fn(plane.data_ptr(), H, W, tl.data_ptr(), out.data_ptr(), n, win,
-            int(use_bf16), torch.cuda.current_stream(dev).cuda_stream)
+            int(use_bf16), int(staged),
+            torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"mm_windows launch failed: cudaError {rc}")
     return out

@@ -32,7 +32,8 @@ import torch
 from ssvio_tpu_torch import frontend as fe
 from ssvio_tpu_torch.config import Settings
 from ssvio_tpu_torch.dataio import synthetic, synthetic_torch
-from ssvio_tpu_torch.ops import lk, lk_cuda, lk_patch_cuda, pyramid
+from ssvio_tpu_torch.ops import (_nvcc, lk, lk_cuda, lk_patch_cuda, pyramid,
+                                 sampling)
 from ssvio_tpu_torch.ops import lk_variants_cuda as lkv
 from ssvio_tpu_torch.system import System
 
@@ -50,9 +51,10 @@ def _device() -> torch.device:
     return torch.device("cuda", 0)
 
 
-def _scene(seed, shift, sigma=2.0):
+def _scene(seed, shift, sigma=2.0, stretch=False):
     """Smooth random texture, a copy moved by `shift` (bilinear), and N
-    keypoints away from the border; float32 numpy."""
+    keypoints away from the border; float32 numpy. The texture is scaled to
+    a largest value of 255, or with `stretch` to the range 0..255."""
     rng = np.random.default_rng(seed)
     img = rng.uniform(0, 255, (H, W))
     r = int(3 * sigma)
@@ -60,6 +62,8 @@ def _scene(seed, shift, sigma=2.0):
     k /= k.sum()
     for ax in (0, 1):
         img = np.apply_along_axis(lambda v: np.convolve(v, k, "same"), ax, img)
+    if stretch:
+        img = img - img.min()
     img = img / img.max() * 255.0
     yy, xx = np.mgrid[0:H, 0:W].astype(np.float64)
     sx = np.clip(xx - shift[0], 0, W - 1)
@@ -321,13 +325,14 @@ def _window_ulps(got, want):
     return float(((got - want).abs() / (scale * 2.0 ** -23)).max())
 
 
-def _variant_level(dev):
-    """One 190x250 level with the 192x256 bounds of the padded plane,
-    N = 45 (the last lockstep group of #5 ragged), 4 keypoints frozen."""
-    img, img2, pts = _scene(214, (3.1, -2.2))
+def _variant_level(dev, hw=(190, 250), seed=214, stretch=False):
+    """One level of true dims hw with the 192x256 bounds of the padded
+    plane, N = 45 (not a multiple of the 4 warps a block), 4 keypoints
+    frozen."""
+    img, img2, pts = _scene(seed, (3.1, -2.2), stretch=stretch)
     img_t = torch.from_numpy(img)
     gx, gy = pyramid.sobel_gradients(img_t)
-    planes = [t[:190, :250].contiguous().to(dev)
+    planes = [t[:hw[0], :hw[1]].contiguous().to(dev)
               for t in (img_t, gx, gy, torch.from_numpy(img2))]
     p = torch.from_numpy(pts[:45]).to(dev)
     frozen0 = torch.zeros((45, 1), dtype=torch.int32, device=dev)
@@ -335,15 +340,18 @@ def _variant_level(dev):
     return (*planes, p, p, frozen0)
 
 
-@pytest.mark.parametrize("flavour", list(VARIANTS))
-def test_variant_kernel_matches_plain_version_on_gpu(flavour):
-    """Kernels #3-#5 on _variant_level against their plain versions; sw
+@pytest.mark.parametrize("flavour,win", [
+    ("sw", 11), ("pk", 11), ("pk", 16), ("mm", 11), ("mm", 16),
+    ("mm_f32", 11), ("mm_f32", 16)])
+def test_variant_kernel_matches_plain_version_on_gpu(flavour, win):
+    """Kernels #3-#5 on _variant_level against their plain versions, #4
+    and #5 at win 11 (4 pixels a lane) and 16 (8; two k-steps for mm); sw
     also against kernel #1, whose values it takes."""
     dev = _device()
     counter, fn, ref, extra = VARIANTS[flavour]
     args = _variant_level(dev)
     p, frozen0 = args[4], args[6]
-    kw = dict(KW, padded_hw=(192, 256), **extra)
+    kw = dict(KW, win=win, padded_hw=(192, 256), **extra)
     before = lkv.LAUNCHES[counter]
     out_k, flag_k = fn(*args, **kw)
     torch.cuda.synchronize()
@@ -368,19 +376,21 @@ def test_variant_kernel_matches_plain_version_on_gpu(flavour):
         assert float(torch.max(torch.abs(out_k - out_1))) == 0.0
 
 
-def test_mm_tight_checks_and_their_control_on_gpu():
+@pytest.mark.parametrize("win", [11, 16])
+def test_mm_tight_checks_and_their_control_on_gpu(win):
     """mm's kernel against its plain version where noise cannot build up:
     the sampled windows (template top-lefts on the three previous planes,
-    search top-lefts on the current one) within MM_WINDOW_ULPS, and one
-    step within MM_STEP_TOL_PX on every live track. Control: the mm_f32
+    read from L2; search top-lefts on the current one, read from a staged
+    region, as the solve reads them) within MM_WINDOW_ULPS, and one step
+    within MM_STEP_TOL_PX on every live track. Control: the mm_f32
     kernel, which leaves out the bf16 roundings, held against mm's plain
     version, fails both and the share rule."""
     dev = _device()
     args = _variant_level(dev)
     planes, p, frozen0 = args[:4], args[4], args[6]
-    r = KW["win"] // 2
+    r = win // 2
     tl = torch.clamp(p - r, min=0.0).contiguous()
-    kw = dict(KW, padded_hw=(192, 256))
+    kw = dict(KW, win=win, padded_hw=(192, 256))
     one = dict(kw, iters=1)
     step_r, flag_r = lkv.lk_level_mm_ref(*args, **one, use_bf16=True)
     out_r, _ = lkv.lk_level_mm_ref(*args, **kw, use_bf16=True)
@@ -388,8 +398,10 @@ def test_mm_tight_checks_and_their_control_on_gpu():
     got = {}
     for tag, use_bf16 in (("mm", True), ("control", False)):
         ulps = [_window_ulps(
-            lkv.mm_windows(pl, tl, win=KW["win"], use_bf16=use_bf16),
-            lkv.mm_windows_ref(pl, tl, win=KW["win"])) for pl in planes]
+            lkv.mm_windows(pl, tl, win=win, use_bf16=use_bf16,
+                           staged=k == 3),
+            lkv.mm_windows_ref(pl, tl, win=win))
+            for k, pl in enumerate(planes)]
         step_k, _ = lkv.lk_level_mm(*args, **one, use_bf16=use_bf16)
         out_k, _ = lkv.lk_level_mm(*args, **kw, use_bf16=use_bf16)
         d = torch.max(torch.abs(out_k - out_r), dim=-1).values[live]
@@ -402,7 +414,9 @@ def test_mm_tight_checks_and_their_control_on_gpu():
     assert ctl[0] > MM_WINDOW_ULPS and ctl[1] > MM_STEP_TOL_PX \
         and ctl[2] < MM_MIN_AGREE_SHARE, got
     with pytest.raises(ValueError):          # a top-left off the plane
-        lkv.mm_windows(planes[0], tl - 40.0, win=KW["win"])
+        lkv.mm_windows(planes[0], tl - 40.0, win=win)
+    with pytest.raises(ValueError):          # past the kernel's limit
+        lkv.mm_windows(planes[0], tl, win=17)
 
 
 @pytest.mark.parametrize("flavour", list(COUNTER))
@@ -446,10 +460,71 @@ def test_variant_wrapper_rejects_what_the_kernel_does_not_take(flavour):
         ((*planes, p[:-1], p, frozen0), kw),                    # shape
         ((*planes, p.cpu(), p, frozen0), kw),                   # device
         ((*planes, p, p, frozen0.long()), kw),                  # dtype
-        ((*planes, p, p, frozen0), dict(kw, win=13)),           # 169 pixels
+        # one past the kernel's window limit: 12 for sw, 17 for pk and mm
+        ((*planes, p, p, frozen0), dict(kw, win=_nvcc.MAX_WIN[counter] + 1)),
         ((*planes, p, p, frozen0), dict(kw, padded_hw=(H - 8, W))),
     ]
+    if flavour != "sw":
+        stats = torch.zeros(3, dtype=torch.int32, device=dev)
+        bad += [((*planes, p, p, frozen0), dict(kw, stats=stats.long())),
+                ((*planes, p, p, frozen0), dict(kw, stats=stats[:2]))]
     for args, k in bad:
         with pytest.raises(ValueError):
             fn(*args, **k)
     assert lkv.LAUNCHES == before
+
+
+# phase 3b's share of the live tracks that must agree within POS_ATOL
+# (chip_smoke.py: MM_MIN_AGREE_SHARE)
+PHASE_3B_AGREE_SHARE = 0.95
+
+
+@pytest.mark.parametrize("hw", [(188, 248), (190, 250), (189, 249)])
+@pytest.mark.parametrize("flavour", ["pk", "mm", "mm_f32"])
+def test_search_leaves_the_staged_region_on_gpu(flavour, hw):
+    """#4 and #5 with guesses 12 px off the true motion in x and in y, so
+    that searches walk past the region staged around their first window
+    and read L2, and 6 keypoints within 8 px of the true-dims edge of a
+    level whose padded dims (192x256) exceed them, so that the region and
+    the windows reach past (H, W) and read 0. The widths take each copy
+    path: 248 rows are 16-byte aligned, 250 float32 rows 4-byte (bf16
+    4-byte too), 249 bf16 rows element by element. The kernel reports
+    windows read outside the region (> 0), and is held as chip_smoke.py's
+    region fallback check holds it: flags equal, tracks that converged
+    within POS_ATOL (not mm), and at least PHASE_3B_AGREE_SHARE of all live
+    tracks within POS_ATOL. Starting 12 px off, a quarter of the tracks
+    still step at the 30-iteration cap, so phase 3's bound on that share
+    does not apply; the agree share holds them instead."""
+    dev = _device()
+    counter, fn, ref, extra = VARIANTS[flavour]
+    args = list(_variant_level(dev, hw, seed=217, stretch=True))
+    h, w = hw
+    p = args[4].clone()
+    p[4:7, 0] = w - 8.0 + torch.arange(3, device=dev) * 1.3
+    p[7:10, 1] = h - 8.0 + torch.arange(3, device=dev) * 1.3
+    guess = p + torch.tensor([3.1 + 12.0, -2.2 - 12.0], device=dev)
+    guess[4:10] = p[4:10]                    # the edge keypoints start there
+    args[4], args[5] = p.contiguous(), guess.contiguous()
+    frozen0 = args[6]
+    kw = dict(KW, padded_hw=(192, 256), **extra)
+    stats = torch.zeros(3, dtype=torch.int32, device=dev)
+    before = lkv.LAUNCHES[counter]
+    out_k, flag_k = fn(*args, **kw, stats=stats)
+    torch.cuda.synchronize()
+    assert lkv.LAUNCHES[counter] == before + 1
+    out_r, flag_r = ref(*args, **kw)
+    n_out, kp_iters, max_iters = (int(v) for v in stats.cpu())
+    assert n_out > 0 and kp_iters >= n_out and 1 <= max_iters <= KW["iters"]
+    assert torch.equal(flag_k, flag_r)
+    assert torch.isfinite(out_k).all()
+    live = (flag_k[:, 0] > 0) & (frozen0[:, 0] == 0) \
+        & sampling.in_bounds(out_r, h, w, 1.0)        # as chip_smoke.py's
+    assert int(live.sum()) >= 30
+    d = torch.max(torch.abs(out_k - out_r), dim=-1).values
+    assert float((d[live] <= POS_ATOL).float().mean()) \
+        >= PHASE_3B_AGREE_SHARE, d[live]
+    if flavour != "mm":
+        conv = torch.all(ref(*args, **dict(kw, iters=KW["iters"] - 1))[0]
+                         == out_r, dim=-1)
+        assert int((live & conv).sum()) >= 15
+        assert float(d[live & conv].max()) < POS_ATOL

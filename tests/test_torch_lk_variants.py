@@ -107,6 +107,40 @@ def test_level_plain_version_matches_jax_variant(kernel, scene_name):
     assert hit.mean() > 0.8, hit.mean()
 
 
+@pytest.mark.parametrize("win", [13, 16])
+@pytest.mark.parametrize("kernel", ["ymm", "mm", "mm_f32"])
+def test_level_plain_version_matches_jax_variant_at_wide_windows(kernel, win):
+    """The flavours whose kernels take windows up to 16 (#4: ymm, #5: mm,
+    mm_f32; the JAX `pk` kernel's limit and the 16-row blocks of JAX's
+    `mm`) at win 13 and 16, on the 64x256 scene (16 keypoints), with the
+    rules of test_level_plain_version_matches_jax_variant. For mm, the
+    share rule alone, as chip_smoke.py's phase 3b holds it: at win 16 one
+    track of this scene converges 0.16 px from the JAX one, inside the bf16
+    noise floor, after an ulp flipped a rounding."""
+    scene = _scene("64x256")
+    img, img2, gx, gy, pts, valid = scene
+    out_j, ok_j = lk_j._track_level(
+        *[jnp.asarray(a) for a in (img, img2, gx, gy, pts, pts, valid)],
+        lk_j.LKParams(backend="pallas_interpret", kernel=kernel, window=win))
+    out_j, ok_j = np.asarray(out_j), np.asarray(ok_j)
+    out_t, ok_t = _port_level(scene, kernel, window=win)
+    np.testing.assert_array_equal(ok_t, ok_j)
+    live = ok_t & valid
+    assert live.sum() >= 0.6 * valid.sum(), live.sum()
+    d = np.max(np.abs(out_t - out_j), axis=1)
+    tol = POS_ATOL[kernel]
+    if kernel == "mm":
+        assert (d[live] <= tol).mean() >= MM_MIN_AGREE_SHARE, d[live]
+        return
+    capped = np.any(_port_level(scene, kernel, window=win, iters=29)[0]
+                    != out_t, axis=1)
+    assert np.all(d[live & ~capped] <= tol), d[live & ~capped].max()
+    assert (live & capped).sum() <= MAX_CAPPED_SHARE * live.sum()
+    hit = np.all(np.abs(out_t[live] - pts[live]
+                        - np.asarray(SCENES["64x256"][2])) < 0.1, axis=1)
+    assert hit.mean() > 0.8, hit.mean()
+
+
 @pytest.mark.parametrize("kernel", ["sw", "mm"])
 def test_track_matches_jax_variant(kernel):
     """The whole 3-level pyramidal track (coarse levels padded to 32x256).
@@ -208,7 +242,17 @@ def test_mm_windows_is_the_two_hot_product(use_bf16):
     version on the CPU: By @ S @ Bx^T of the integer window S (0 beyond
     the plane), with mm's three bf16 roundings bit for bit, or in float32
     (mm_f32) within float32 rounding (numpy sums zero products too)."""
-    win = 11
+    _check_mm_windows(use_bf16, win=11)
+
+
+@pytest.mark.parametrize("use_bf16", [True, False])
+def test_mm_windows_is_the_two_hot_product_at_win_16(use_bf16):
+    """The same at win 16, the widest window kernel #5 takes (S and R are
+    17 wide: two k-steps of its tensor-core products)."""
+    _check_mm_windows(use_bf16, win=16)
+
+
+def _check_mm_windows(use_bf16, win):
     rng = np.random.default_rng(509)
     plane = rng.uniform(0, 255, (40, 100)).astype(np.float32)
     tl = np.stack([rng.uniform(0, 99, 12), rng.uniform(0, 39, 12)],
@@ -267,6 +311,23 @@ def test_plain_version_counts_the_pixels_the_level_needs():
     assert lk_cuda.touched_pixels(counts, (64, 256), (H, W)) == \
         2 * union(np.arange(12)) + union(live0)
     assert union(np.arange(12)) < 12 * (win + 1) ** 2   # overlap, edges
+
+
+def test_plain_version_counts_the_longest_chain():
+    """counts["max_iters"], which chip_smoke.py divides a kernel's device
+    time by: the most iterations any keypoint runs, which is the fewest
+    iterations after which no keypoint moves any more."""
+    img, img2, gx, gy, pts = _small_level(n=12)
+    frozen0 = torch.zeros((12, 1), dtype=torch.int32)
+    kw = dict(KW, padded_hw=(64, 256))
+    counts = {}
+    final, _ = lk_cuda.lk_level_ref(img, gx, gy, img2, pts, pts + 1.5,
+                                    frozen0, **kw, counts=counts)
+    n = int(counts["max_iters"])
+    assert 1 < n < KW["iters"]
+    short = [lk_cuda.lk_level_ref(img, gx, gy, img2, pts, pts + 1.5, frozen0,
+                                  **dict(kw, iters=i))[0] for i in (n - 1, n)]
+    assert not torch.equal(short[0], final) and torch.equal(short[1], final)
 
 
 def _small_level(n=8):
@@ -374,3 +435,32 @@ def test_sw_plain_version_is_kernel1s_function():
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
     assert torch.equal(a[1], c[1])
     assert float(torch.max(torch.abs(a[0] - c[0]))) < 1e-3
+
+
+# each level wrapper, its keywords and the largest window its kernel takes:
+# 11 for kernels #1-#3, 16 for #4 and #5 (JAX's `pk` limit; JAX's `mm`
+# has no guard and silently drops window rows past 16)
+WIN_LIMITS = {"lk_level": (lk_cuda.lk_level, {}, 11),
+              "lk_level_sw": (lkv.lk_level_sw, {}, 11),
+              "lk_level_pk": (lkv.lk_level_pk, {}, 16),
+              "lk_level_mm": (lkv.lk_level_mm, {"use_bf16": True}, 16),
+              "lk_level_mm_f32": (lkv.lk_level_mm, {"use_bf16": False}, 16)}
+
+
+@pytest.mark.parametrize("wrapper", list(WIN_LIMITS))
+def test_wrapper_takes_windows_up_to_its_kernels_limit(wrapper):
+    """Each wrapper raises one past its kernel's window limit, on the CPU
+    too (its plain version would take any window), and at the limit runs
+    its plain version there; mm_windows shares kernel #5's limit."""
+    fn, extra, limit = WIN_LIMITS[wrapper]
+    img, img2, gx, gy, pts = _small_level()
+    frozen0 = torch.zeros((len(pts), 1), dtype=torch.int32)
+    args = (img, gx, gy, img2, pts, pts, frozen0)
+    kw = dict(KW, padded_hw=(64, 256), **extra)
+    with pytest.raises(ValueError, match=f"outside 1..{limit}"):
+        fn(*args, **dict(kw, win=limit + 1))
+    out, flag = fn(*args, **dict(kw, win=limit))
+    assert bool(flag.any()) and bool(torch.isfinite(out).all())
+    if wrapper == "lk_level_mm":
+        with pytest.raises(ValueError, match="outside 1..16"):
+            lkv.mm_windows(img, pts - 8.0, win=17)
