@@ -7,7 +7,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    limit line.
 2. build: compiles the five LK kernel sources of the checkout
    (ssvio_tpu_torch/csrc/lk_level.cu, lk_patch.cu, lk_level_sw.cu,
-   lk_level_pk.cu, lk_level_mm.cu), one nvcc each, all started together.
+   lk_level_pk.cu, lk_level_mm.cu; each with every pixel class its
+   windows need), one nvcc each, all started together.
 3. kernels vs plain: for the KITTI bench configuration (1241x376) and the
    RobotCar XB3 wide configuration (1280x960), renders a scene on the card,
    detects 512 keypoints as the keyframe step does, and at every level of
@@ -16,22 +17,26 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    lk_patch_cuda.lk_patch above it: level 0 at 1280x960) and its plain torch
    version on the same inputs, for a temporal pair and a stereo pair, coarse
    to fine as lk.track seeds them. Flags must be equal and converged
-   positions within POS_TOL_PX; both are timed with CUDA events.
+   positions within POS_TOL_PX; both are timed with CUDA events. Kernel
+   #2 is also held at its widest window, at RobotCar level 0.
 3b. flavours vs plain: at every KITTI level of phase 3, on the same inputs,
-   each `Settings.lk_kernel` flavour's kernel (sw: #3, ymm and pkmm: #4,
-   one function, run once; mm and mm_f32: #5; ops/lk_variants_cuda.py)
-   against its plain version, with phase 3's checks (for mm,
-   MM_MIN_AGREE_SHARE replaces the cap share and the converged tolerance,
-   and the tight checks of _mm_tight and their control are added) and
-   times; at every temporal level its device time from torch.profiler and
-   its ratio to kernel #1's there (phase 3), the most iterations of any
-   keypoint and us per iteration of that chain, and for #4 and #5 the
-   search windows read outside their staged region (_chain); prints each
-   flavour's largest position difference from kernel #1. Then two checks
-   of #4 and #5: the region fallback (guesses REGION_OFFSET_PX off at
-   REGION_LEVEL, so that searches leave the staged region: outside count
-   > 0, held against the plain versions) and win 16 (at WIN16_LEVEL; mm
-   with _mm_tight).
+   each `Settings.lk_kernel` flavour's kernel (serial: #1 again, sw: #3,
+   ymm and pkmm: #4, one function, run once; mm and mm_f32: #5;
+   ops/lk_variants_cuda.py) against its plain version, with phase 3's
+   checks (for mm, MM_MIN_AGREE_SHARE replaces the cap share and the
+   converged tolerance, and the tight checks of _mm_tight and their
+   control are added) and times; at every temporal level its device time
+   from torch.profiler and its ratio to kernel #1's there (phase 3), the
+   most iterations of any keypoint, the time per iteration of that chain
+   as a slope between the path's iterations and one, with the fixed part,
+   and the search windows read outside the staged region (_chain); prints
+   each flavour's largest position difference from kernel #1, which must
+   be 0 for serial and sw (one kernel). Then two checks of every flavour:
+   the region fallback (guesses REGION_OFFSET_PX off at REGION_LEVEL, so
+   that searches leave the staged region: outside count > 0, held against
+   the plain versions) and its kernel's widest window (at WIDE_LEVEL; mm
+   with _mm_tight); kernel #2's widest window is held in phase 3, at
+   RobotCar level 0.
 4. the run_step path: System(device="cuda") with the bench configuration
    (512 features, 8192 landmarks, window 16, 8 FAST octaves, LK 11x11 / 3
    levels / 30 iterations, local BA on, loop closing off) runs 96 frames of
@@ -127,8 +132,9 @@ MM_MIN_AGREE_SHARE = 1.0 - MAX_CAPPED_SHARE
 MM_WINDOW_ULPS = 2.0
 MM_STEP_TOL_PX = 1e-4
 FLAVOUR_FRAMES_CUT = 48     # phase 6 frames of the flavours other than mm
-                            # when the script would pass SCRIPT_BUDGET_S
-SCRIPT_BUDGET_S = 300.0
+                            # when the script would pass SCRIPT_BUDGET_S,
+SCRIPT_BUDGET_S = 420.0     # which keeps it well inside its 1200 s limit
+                            # on a slow host (one H100: 182-246 s in all)
 PLAIN_REPS = 5              # timed calls of a plain version (~30 ms each)
 KERNELS = {
     "lk_level": dict(source="ssvio_tpu_torch/csrc/lk_level.cu",
@@ -147,6 +153,7 @@ KERNELS = {
 # the kernel pairs of phase 3b: launch counter, wrapper, plain version,
 # keywords (ops/lk.py::_level_fns; ymm and pkmm are one function)
 PAIRS = {
+    "serial": ("lk_level", lk_cuda.lk_level, lk_cuda.lk_level_ref, {}),
     "sw": ("lk_level_sw", lkv.lk_level_sw, lkv.lk_level_sw_ref, {}),
     "ymm/pkmm": ("lk_level_pk", lkv.lk_level_pk, lkv.lk_level_pk_ref, {}),
     "mm": ("lk_level_mm", lkv.lk_level_mm, lkv.lk_level_mm_ref,
@@ -239,25 +246,30 @@ def _time_ms(fn, reps=20) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _device_ms(fn, reps=20) -> float:
+def _device_ms(fn, reps=20, tries=3) -> float:
     """Device time of one launch of the LK kernel `fn` launches: the mean
     of the kernel's own durations in a torch.profiler trace of `reps`
     calls (the CUDA-event time of back-to-back wrapper calls also holds
-    the host work of each call). The trace may miss a launch (19 of 20
-    seen on one H100), so the mean is over those it holds."""
+    the host work of each call). The trace may miss launches (19 of 20
+    seen on one H100, and once none of 20 in a process that took ~100
+    traces), so the mean is over those it holds, and a trace that holds
+    fewer than half is taken again, up to `tries` times."""
     fn()
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    evts = [e for e in prof.key_averages()
-            if "level_kernel" in e.key or "lk_patch_kernel" in e.key]
-    if len(evts) != 1 or not reps // 2 <= evts[0].count <= reps:
-        raise AssertionError(
-            f"profiler: expected one LK kernel launched {reps} times, got "
-            f"{[(e.key, e.count) for e in evts]}")
-    return evts[0].device_time_total / 1e3 / evts[0].count
+    for _ in range(tries):
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        evts = [e for e in prof.key_averages()
+                if "level_kernel" in e.key or "lk_patch_kernel" in e.key]
+        if len(evts) > 1:
+            break
+        if evts and reps // 2 <= evts[0].count <= reps:
+            return evts[0].device_time_total / 1e3 / evts[0].count
+    raise AssertionError(
+        f"profiler: expected one LK kernel launched {reps} times, got "
+        f"{[(e.key, e.count) for e in evts]}")
 
 
 def _level_pair(name, pa, pb, l, pts, guess, valid, params):
@@ -380,6 +392,8 @@ def phase_kernels_vs_plain(tag: str, s: Settings, dev):
             res, g_r, live = _hold(f"{tag} {pair} level {l}", out_k, flag_k,
                                    plain, params.iters, frozen0, to_global,
                                    h, w)
+            if name == "lk_patch" and pair == "temporal":
+                _check_patch_wide(pa, pb, l, pts, guess, feat.valid, params)
             ms_k = _time_ms(kern)
             ms_r = _time_ms(lambda: plain(params.iters), reps=PLAIN_REPS)
             dev_ms = _device_ms(kern) if pair == "temporal" else None
@@ -413,6 +427,21 @@ def phase_kernels_vs_plain(tag: str, s: Settings, dev):
     return rows, levels
 
 
+def _check_patch_wide(pa, pb, l, pts, guess, valid, params):
+    """Kernel #2 at its widest window (_nvcc.MAX_WIN: 24, 18 pixels a
+    lane) on phase 3's inputs at level l, against its plain version with
+    phase 3's checks."""
+    wide = params._replace(window=_nvcc.MAX_WIN["lk_patch"])
+    h, w = pa.levels[l].shape
+    kern, plain, to_global, frozen0, _, _ = _level_pair(
+        "lk_patch", pa, pb, l, pts, guess, valid, wide)
+    out_k, flag_k = kern()
+    res, _, _ = _hold(f"win {wide.window} lk_patch", out_k, flag_k, plain,
+                      wide.iters, frozen0, to_global, h, w)
+    print(f"  win {wide.window} [lk_patch] temporal level {l}: "
+          + json.dumps(res))
+
+
 def phase_flavours_vs_plain(levels) -> list:
     """Phase 3b: each flavour's kernel against its plain version at the
     KITTI levels of phase 3 (kernel #1's inputs), and its largest position
@@ -441,7 +470,7 @@ def phase_flavours_vs_plain(levels) -> list:
             work = _work(plain, lv["iters"], lv["padded_hw"], (h, w))
             b_ms, b_by = bound_ms(args[4].shape[0], work, kw["win"],
                                   flavour == "mm")
-            chain = _chain(kern, lv, work, counter in STAGED)
+            chain = _chain(kern, lv)
             print(f"  {flavour:8s} {lv['pair']:8s} level {l} [{h}x{w}] "
                   f"{counter} live {res['live']:3d} capped {res['capped']} "
                   f"agree {res['agree_share']:.3f} max_abs_err "
@@ -461,49 +490,52 @@ def phase_flavours_vs_plain(levels) -> list:
                              **chain))
         print(f"  {flavour}: largest position difference from kernel #1 on "
               f"the same inputs {diff_1:.3g} px (live tracks)")
+        if counter in ("lk_level", "lk_level_sw") and diff_1 != 0.0:
+            raise AssertionError(f"{flavour}: differs from kernel #1 by "
+                                 f"{diff_1} px; it is kernel #1's kernel")
     _check_region_fallback(levels)
-    _check_win16(levels)
+    _check_wide(levels)
     return rows
 
 
-# the kernels that stage a search region (#4, #5) and report, through
-# `stats`, the windows they read outside it; the region fallback check's
-# offset of the guesses from the true motion (px) and its KITTI level
-STAGED = ("lk_level_pk", "lk_level_mm", "lk_level_mm_f32")
+# the region fallback check's offset of the guesses from the true motion
+# (px) and its KITTI level; the KITTI level of the widest-window check
 REGION_OFFSET_PX = (12.0, 0.0)
 REGION_LEVEL = ("stereo", 2)
-WIN16_LEVEL = ("temporal", 0)
+WIDE_LEVEL = ("temporal", 0)
 
 
-def _chain(kern, lv, work, staged) -> dict:
-    """A kernel's chain at one level: its device time (temporal levels),
-    the ratio to kernel #1's at the level, the most iterations of any
-    keypoint (the kernel's own count for the staged kernels, else the
-    plain version's), us per iteration of that chain, and the search
-    windows read outside the staged region."""
-    out = dict(device_ms=None, ratio_to_1=None,
-               max_iters=work["max_iters"], us_per_iter=None, outside=None)
-    if staged:
-        stats = torch.zeros(3, dtype=torch.int32, device=lv["out_1"].device)
-        kern(stats=stats)
-        out["outside"], _, out["max_iters"] = (int(v) for v in stats.cpu())
+def _chain(kern, lv) -> dict:
+    """A staged kernel's chain at one level, from its `stats`: the most
+    iterations of any keypoint and the search windows read outside the
+    staged region; at temporal levels its device time, the ratio to kernel
+    #1's at the level, the time per iteration as a slope, (device at the
+    path's iterations - device at one) / (the difference in longest chain,
+    max_iters - 1), and the fixed part (device at one less one slope:
+    template windows, staging, write-back, launch)."""
+    out = dict(device_ms=None, ratio_to_1=None, us_per_iter=None,
+               fixed_ms=None)
+    stats = torch.zeros(3, dtype=torch.int32, device=lv["out_1"].device)
+    kern(stats=stats)
+    out["outside"], _, out["max_iters"] = (int(v) for v in stats.cpu())
     if lv["pair"] == "temporal":
         out["device_ms"] = _device_ms(kern)
         out["ratio_to_1"] = out["device_ms"] / lv["device_ms_1"]
-        if out["max_iters"]:
-            out["us_per_iter"] = 1e3 * out["device_ms"] / out["max_iters"]
+        if out["max_iters"] > 1:        # one iteration: a chain of 1
+            ms_1 = _device_ms(functools.partial(kern, iters=1))
+            us = 1e3 * (out["device_ms"] - ms_1) / (out["max_iters"] - 1)
+            out.update(us_per_iter=us, fixed_ms=ms_1 - 1e-3 * us)
     return out
 
 
 def _chain_text(c) -> str:
-    s = f"max_iters {c['max_iters']}"
-    if c["outside"] is not None:
-        s += f" outside_region {c['outside']}"
+    s = f"max_iters {c['max_iters']} outside_region {c['outside']}"
     if c["device_ms"] is not None:
         s += (f" device {c['device_ms']:.4f} ms ratio_to_1 "
               f"{c['ratio_to_1']:.3f}")
         if c["us_per_iter"] is not None:
-            s += f" us_per_iter {c['us_per_iter']:.3f}"
+            s += (f" us_per_iter {c['us_per_iter']:.4f} (slope) fixed "
+                  f"{c['fixed_ms']:.4f} ms")
     return s
 
 
@@ -513,9 +545,9 @@ def _find_level(levels, which):
 
 
 def _check_region_fallback(levels):
-    """#4 and #5 at REGION_LEVEL with every guess REGION_OFFSET_PX off the
-    one phase 3 gave, so that searches walk past the region staged around
-    their first window and read L2. Each kernel reports windows read
+    """Every flavour at REGION_LEVEL with every guess REGION_OFFSET_PX off
+    the one phase 3 gave, so that searches walk past the region staged
+    around their first window and read L2. Each kernel reports windows read
     outside it (> 0) and is held against its plain version: flags equal,
     at least MM_MIN_AGREE_SHARE of the live tracks within POS_TOL_PX, and
     (not mm) every converged one. Starting 12 px off, a quarter to a half
@@ -528,8 +560,7 @@ def _check_region_fallback(levels):
     frozen0 = (lv["frozen0"].bool() | ~sampling.in_bounds(
         guess, h, w, kw["win"] // 2 + 1)[:, None]).to(torch.int32)
     a = (*args[:5], guess, frozen0)
-    for flavour in ("ymm/pkmm", "mm", "mm_f32"):
-        counter, fn, ref, extra = PAIRS[flavour]
+    for flavour, (counter, fn, ref, extra) in PAIRS.items():
         stats = torch.zeros(3, dtype=torch.int32, device=guess.device)
         out_k, flag_k = fn(*a, iters=lv["iters"], **kw, **extra, stats=stats)
         res, _, _ = _hold(f"region fallback {flavour}", out_k, flag_k,
@@ -551,27 +582,26 @@ def _check_region_fallback(levels):
                                  f" px > {POS_TOL_PX}")
 
 
-def _check_win16(levels):
-    """#4 and #5 at win 16, the JAX kernels' limit (8 pixels a lane; two
-    k-steps of mm's products), at WIN16_LEVEL against their plain versions
-    with phase 3's checks; mm by its agree share and _mm_tight."""
-    lv = _find_level(levels, WIN16_LEVEL)
+def _check_wide(levels):
+    """Every flavour's kernel at its widest window (_nvcc.MAX_WIN: #1 24,
+    #3 23, #4 and #5 16; 18 or 8 pixels a lane, two k-steps of mm's
+    products) at WIDE_LEVEL against its plain version, with phase 3's
+    checks; mm by its agree share and _mm_tight."""
+    lv = _find_level(levels, WIDE_LEVEL)
     (args, kw), h, w = lv["args"], lv["h"], lv["w"]
-    kw16 = dict(kw, win=16)
-    lv16 = dict(lv, args=(args, kw16))
-    for flavour in ("ymm/pkmm", "mm", "mm_f32"):
-        counter, fn, ref, extra = PAIRS[flavour]
-        out_k, flag_k = fn(*args, iters=lv["iters"], **kw16, **extra)
+    for flavour, (counter, fn, ref, extra) in PAIRS.items():
+        kw_w = dict(kw, win=_nvcc.MAX_WIN[counter])
+        out_k, flag_k = fn(*args, iters=lv["iters"], **kw_w, **extra)
         def plain(it, **c):
-            return ref(*args, iters=it, **kw16, **extra, **c)
-        res, _, _ = _hold(f"win 16 {flavour}", out_k, flag_k, plain,
-                          lv["iters"], lv["frozen0"], lambda out: out, h, w,
-                          mm=flavour == "mm")
-        print(f"  win 16 [{flavour}] {lv['pair']} level {lv['level']}: "
-              + json.dumps(res))
+            return ref(*args, iters=it, **kw_w, **extra, **c)
+        res, _, _ = _hold(f"win {kw_w['win']} {flavour}", out_k, flag_k,
+                          plain, lv["iters"], lv["frozen0"], lambda out: out,
+                          h, w, mm=flavour == "mm")
+        print(f"  win {kw_w['win']} [{flavour}] {lv['pair']} level "
+              f"{lv['level']}: " + json.dumps(res))
         if flavour == "mm":
-            print("    mm tight: " + json.dumps(
-                _mm_tight(lv16, plain(lv["iters"])[0])))
+            print("    mm tight: " + json.dumps(_mm_tight(
+                dict(lv, args=(args, kw_w)), plain(lv["iters"])[0])))
 
 
 def window_ulps(got: torch.Tensor, want: torch.Tensor) -> float:

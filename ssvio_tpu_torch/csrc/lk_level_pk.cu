@@ -26,8 +26,9 @@
 // barrier in the loop; windows that leave it, and the template windows,
 // read L2. The values, and the order of every sum, are those of the
 // two-pass blend through shared tiles, bit for bit: its FMA contraction is
-// pinned (lk_klt.cuh::lerp2). 4 pixels a lane for win <= 11 (the launch of
-// kernels #1-#3), 8 for win <= 16 (the JAX kernel's limit).
+// pinned (lk_klt.cuh::lerp2). The sampler is kernel #1's (RegionSampler)
+// with the separable blend. 4 pixels a lane for win <= 11 (the path's
+// class), 8 for win <= 16 (the JAX kernel's limit).
 
 #include "lk_klt.cuh"
 

@@ -24,6 +24,7 @@ namespace {
 
 constexpr int kLanes = 256;             // patch width (lk_pallas.LANES)
 
+template <class Sampler>
 __global__ void __launch_bounds__(32 * kWarpsPerBlock)
 lk_patch_kernel(const float* __restrict__ prev, const float* __restrict__ gx,
                 const float* __restrict__ gy, const float* __restrict__ cur,
@@ -46,7 +47,7 @@ lk_patch_kernel(const float* __restrict__ prev, const float* __restrict__ gx,
   float lx = local0[2 * kp];
   float ly = local0[2 * kp + 1];
   bool good;
-  GlobalSampler smp(H, W, lane, win, nullptr);
+  Sampler smp(H, W, lane, win, nullptr);
   klt_solve(smp, prev, gx, gy, cur, win, iters, eps, min_eig, tmpl,
             localT[2 * kp], localT[2 * kp + 1], search, frozen0[kp] > 0, lx,
             ly, good);
@@ -57,13 +58,28 @@ lk_patch_kernel(const float* __restrict__ prev, const float* __restrict__ gx,
   }
 }
 
+template <class Sampler>
+int launch_patch(const float* prev, const float* gx, const float* gy,
+                 const float* cur, int H, int W, const int* tl_prev,
+                 const int* tl_cur, const float* localT, const float* local0,
+                 const int* frozen0, float* local_out, int* flag, int n,
+                 int win, int pty, int pcy, int iters, float eps,
+                 float min_eig, void* stream) {
+  lk_patch_kernel<Sampler>
+      <<<(n + kWarpsPerBlock - 1) / kWarpsPerBlock, 32 * kWarpsPerBlock, 0,
+         (cudaStream_t)stream>>>(prev, gx, gy, cur, H, W, tl_prev, tl_cur,
+                                 localT, local0, frozen0, local_out, flag, n,
+                                 win, pty, pcy, iters, eps, min_eig);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Plain C entry point (bound with ctypes). Planes are [H, W] float32
 // row-major; tl_prev/tl_cur int32 [n, 2] patch origins (x, y) that the
 // wrapper aligned and clipped into the padded dims; localT/local0 float32
-// [n, 2]. Launches on `stream` without synchronizing and returns
-// cudaGetLastError().
+// [n, 2]. 4, 8 or 18 pixels a lane for win <= 11, 16, 24. Launches on
+// `stream` without synchronizing and returns cudaGetLastError().
 extern "C" int ssvio_lk_patch(const float* prev, const float* gx,
                               const float* gy, const float* cur, int H, int W,
                               const int* tl_prev, const int* tl_cur,
@@ -72,13 +88,16 @@ extern "C" int ssvio_lk_patch(const float* prev, const float* gx,
                               int n, int win, int pty, int pcy, int iters,
                               float eps, float min_eig, void* stream) {
   if (n <= 0) return 0;
-  if (win < 1 || win > kMaxWin || pty < win + 2 ||
-      pcy < win + 2 || kLanes < win + 2)
+  if (win < 1 || win > max_window(18) || pty < win + 2 || pcy < win + 2 ||
+      kLanes < win + 2)
     return (int)cudaErrorInvalidValue;
-  const dim3 block(32 * kWarpsPerBlock);
-  const dim3 grid((n + kWarpsPerBlock - 1) / kWarpsPerBlock);
-  lk_patch_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-      prev, gx, gy, cur, H, W, tl_prev, tl_cur, localT, local0, frozen0,
-      local_out, flag, n, win, pty, pcy, iters, eps, min_eig);
-  return (int)cudaGetLastError();
+#define SSVIO_PATCH_LAUNCH(P)                                              \
+  launch_patch<GlobalSampler<P>>(prev, gx, gy, cur, H, W, tl_prev, tl_cur, \
+                                 localT, local0, frozen0, local_out, flag, \
+                                 n, win, pty, pcy, iters, eps, min_eig,    \
+                                 stream)
+  if (win <= max_window(4)) return SSVIO_PATCH_LAUNCH(4);
+  if (win <= max_window(8)) return SSVIO_PATCH_LAUNCH(8);
+  return SSVIO_PATCH_LAUNCH(18);
+#undef SSVIO_PATCH_LAUNCH
 }

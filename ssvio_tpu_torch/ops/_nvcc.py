@@ -24,10 +24,14 @@ _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ssvio_tpu_torch"
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 _CUDA_ROOTS = ("/usr/local/cuda",)   # searched after PATH and $CUDA_HOME
-# the largest window each kernel takes (csrc/lk_klt.cuh: 4 pixels a lane
-# for kernels #1-#3, 8 for #4 and #5, the JAX `pk` kernel's limit and the
-# 16-wide blocks of JAX's `mm`), by launch counter
-MAX_WIN = {"lk_level": 11, "lk_patch": 11, "lk_level_sw": 11,
+# the largest window each kernel takes, by launch counter: the JAX
+# kernels' limits. csrc/lk_klt.cuh holds 4 pixels a lane for win <= 11, 8
+# for <= 16, 18 for <= 24. Kernels #1 and #2: 24, the largest window the
+# JAX kernels' 32-row slab holds at every row offset (lk_pallas.py:281-288,
+# :60-65; JAX's serial kernel has no guard and wraps above it); #3: 23,
+# JAX's `sw` assert; #4 and #5: 16, JAX's `pk` assert and the 16-wide
+# blocks of JAX's `mm`
+MAX_WIN = {"lk_level": 24, "lk_patch": 24, "lk_level_sw": 23,
            "lk_level_pk": 16, "lk_level_mm": 16, "lk_level_mm_f32": 16}
 
 build_info: dict = {}     # source stem -> path, seconds, ptxas log

@@ -13,9 +13,10 @@ function (ROADMAP Queue 3):
   only by the padded level. `LKParams.kernel` picks how its window is
   sampled, as in the JAX package, and each flavour has its own CUDA kernel
   and plain version (`_level_fns`):
-  - "serial": kernel #1, `lk_cuda.lk_level` (four-corner blend from L2);
-  - "sw": kernel #3, `lk_variants_cuda.lk_level_sw` (the window staged in
-    shared memory; kernel #1's values);
+  - "serial": kernel #1, `lk_cuda.lk_level` (four-corner blend, search
+    windows from a region of the current plane staged once a level);
+  - "sw": kernel #3, `lk_variants_cuda.lk_level_sw` (a launch of kernel
+    #1's design: kernel #1's values);
   - "ymm", "pkmm": kernel #4, `lk_variants_cuda.lk_level_pk` (separable:
     y blend, then x; one function for both);
   - "mm", "mm_f32": kernel #5, `lk_variants_cuda.lk_level_mm` ("mm"

@@ -6,7 +6,8 @@ Replaces the TPU kernel `ssvio_tpu/ops/lk_pallas.py::lk_level_vmem`
 kernel of every LK level whose padded planes fit the 12 MiB budget
 (`ops/lk.py`; larger levels take `ops/lk_patch_cuda.py`). Both compute, per
 keypoint:
-bilinear 11x11 template and Sobel windows at `pts_prev` (the window moves
+bilinear win x win (11 x 11 on the path) template and Sobel windows at
+`pts_prev` (the window moves
 rigidly, so it shares one fractional offset), a min-eigenvalue gate on the
 2x2 structure tensor, then up to `iters` forward-additive steps with
 per-keypoint early exit on |delta| < eps or on leaving the padded level
@@ -16,25 +17,37 @@ padding does; the CUDA kernel bounds-checks instead of padding physically.
 
 What bounds it on the card: it is latency-bound, not bandwidth- or
 FLOP-bound. A 512-keypoint call is 512 warps, about 4 per SM of an H100,
-and each iteration is a dependent chain of L2 reads (the four level-0
-planes, 4 x 384 x 1280 x 4 B = 7.9 MB, stay resident in the 50 MB L2),
-a 5-step shuffle reduction and a 2x2 solve. The design keeps everything
+and each iteration of a keypoint is one dependent chain: sample the
+window, two 5-step shuffle reductions, a 2x2 solve, the convergence test.
+A level lasts as long as its longest chain. The design keeps everything
 that does not move in registers: one warp per keypoint, each lane holding
-T, Gx and Gy for its <= 4 of the 121 window pixels for the whole loop, and
-`__shfl_xor_sync` sums that leave bit-identical totals in every lane, so
-the per-keypoint `while` loop stays warp-uniform. wgmma, TMA and batching
-levels or tracks into one launch are later work.
+T, Gx and Gy for its window pixels (4 a lane at win <= 11, 8 at <= 16, 18
+at <= 24) for the whole loop, and `__shfl_xor_sync` sums that leave
+bit-identical totals in every lane, so the per-keypoint `while` loop stays
+warp-uniform. Each warp copies a region of the current plane around its
+first search window into its own shared memory once a level (cp.async)
+and blends every search window inside it from there, with no barrier in
+the loop; the template windows, and a search window that leaves the
+region, read L2 (the four level-0 planes, 4 x 384 x 1280 x 4 B = 7.9 MB,
+stay resident in the 50 MB L2). The blend's FMA contraction is pinned, so
+the values do not depend on where a window was read and equal the first,
+all-L2 design's bit for bit. Window limit 24, where the JAX kernel's
+32-row slab stops holding a window at every row offset.
 
-Shared with the other LK kernels: the level kernel and the solve
-(`csrc/lk_klt.cuh`, generic over a window sampler; this kernel's is
-`GlobalSampler`), the checks and launch of a kernel with this function
-(`launch_level`, used by `lk_variants_cuda.py`), and the plain solve
-`klt_solve_ref` (generic over a `blend`, with the frames of
-`csrc/lk_klt.cuh::Frame`), which every kernel's plain version runs.
+Shared with the other LK kernels: the level kernel, the solve and the
+sampler (`csrc/lk_klt.cuh`, generic over a window sampler; this kernel's
+is `FourCornerSampler`, which kernel #3 launches too), the checks and
+launch of a kernel with this function (`launch_level`, used by
+`lk_variants_cuda.py`), and the plain solve `klt_solve_ref` (generic over
+a `blend`, with the frames of `csrc/lk_klt.cuh::Frame`), which every
+kernel's plain version runs.
 
 `lk_level` launches the kernel for CUDA tensors (or raises) and takes the
 plain version `lk_level_ref` only for CPU tensors. `LAUNCHES` counts kernel
-launches; nothing else increments it.
+launches; nothing else increments it. With `stats`, an int32 [3] CUDA
+tensor, the kernel adds to it the search windows read outside the staged
+region and the keypoint-iterations, and raises its third entry to the most
+iterations of any keypoint (chip_smoke.py; the path passes none).
 """
 
 from __future__ import annotations
@@ -59,7 +72,9 @@ def _library():
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(_nvcc.build(SRC)))
-        lib.ssvio_lk_level.argtypes = LEVEL_ARGTYPES
+        lib.ssvio_lk_level.argtypes = (LEVEL_ARGTYPES[:-1]
+                                       + [ctypes.c_void_p]        # stats
+                                       + LEVEL_ARGTYPES[-1:])
         lib.ssvio_lk_level.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -67,11 +82,21 @@ def _library():
 
 # the C entry point of every kernel with kernel #1's function
 # (csrc/lk_klt.cuh::launch_level): 4 planes, H, W, Hb, Wb, pts_prev,
-# pts_guess, frozen0, pts_out, flag, n, win, iters, eps, min_eig, stream
+# pts_guess, frozen0, pts_out, flag, n, win, iters, eps, min_eig, the
+# kernel's own arguments, stream
 LEVEL_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
                   + [ctypes.c_void_p] * 5
                   + [ctypes.c_int] * 3 + [ctypes.c_float] * 2
                   + [ctypes.c_void_p])
+
+
+def stats_ptr(stats: Optional[torch.Tensor], dev) -> Optional[int]:
+    """The pointer a staged level kernel adds its stats to: None, or an
+    int32 [3] tensor on `dev`."""
+    if stats is None:
+        return None
+    check("stats", stats, torch.int32, (3,), dev)
+    return stats.data_ptr()
 
 
 def launch_level(fn, name: str, planes, pts_prev: torch.Tensor,
@@ -120,6 +145,7 @@ def lk_level(img_prev: torch.Tensor, gx: torch.Tensor, gy: torch.Tensor,
              pts_guess: torch.Tensor, frozen0: torch.Tensor, *,
              win: int, iters: int, eps: float, min_eig: float,
              padded_hw: Tuple[int, int],
+             stats: Optional[torch.Tensor] = None,
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """KLT level, `lk_pallas.lk_level_vmem` semantics.
 
@@ -129,7 +155,8 @@ def lk_level(img_prev: torch.Tensor, gx: torch.Tensor, gy: torch.Tensor,
     Returns (pts_out [N, 2] float32, good_flag [N, 1] int32).
 
     CUDA tensors launch the kernel or raise; CPU tensors take lk_level_ref.
-    Either raises for win > 11, the kernel's limit.
+    Either raises for win > 24, the kernel's limit. `stats`: see the module
+    note (CUDA only).
     """
     global LAUNCHES
     check_window("lk_level", win)
@@ -137,10 +164,12 @@ def lk_level(img_prev: torch.Tensor, gx: torch.Tensor, gy: torch.Tensor,
               padded_hw=padded_hw)
     planes = (img_prev, gx, gy, img_cur)
     if img_cur.device.type == "cpu":
+        if stats is not None:
+            raise ValueError("lk_level: stats are the kernel's (CUDA)")
         return lk_level_ref(*planes, pts_prev, pts_guess, frozen0, **kw)
     pts_out, flag, launched = launch_level(
         lambda: _library().ssvio_lk_level, "lk_level", planes, pts_prev,
-        pts_guess, frozen0, **kw)
+        pts_guess, frozen0, extra=(stats_ptr(stats, img_cur.device),), **kw)
     LAUNCHES += launched
     return pts_out, flag
 

@@ -22,9 +22,12 @@ What bounds it on the card: as kernel #1, latency. The TPU kernel copies
 four patches per keypoint into VMEM; the CUDA kernel copies nothing and
 reads the planes at origin + local coordinate (the four level-0 planes at
 1280x960, 19.7 MB, stay in the 50 MB L2), with one warp per keypoint, T, Gx
-and Gy in registers and warp-uniform `__shfl_xor_sync` sums (the solve in
-`csrc/lk_klt.cuh`, shared with kernel #1). Staging the patch in shared
-memory, TMA and batching levels are later work.
+and Gy in registers (4 pixels a lane at win <= 11, 8 at <= 16, 18 at
+<= 24, the largest window the JAX kernel's 32-row slab holds) and
+warp-uniform `__shfl_xor_sync` sums (the solve in `csrc/lk_klt.cuh`,
+shared with kernel #1, and kernel #1's pinned blend). Staging the search
+patch in shared memory, as kernel #1 stages a region, TMA and batching
+levels are later work.
 
 `lk_patch` launches the kernel for CUDA tensors (or raises) and takes the
 plain version `lk_patch_ref` only for CPU tensors. `LAUNCHES` counts kernel
@@ -80,8 +83,10 @@ def lk_patch(img_prev: torch.Tensor, gx: torch.Tensor, gy: torch.Tensor,
     good_flag [N, 1] int32).
 
     CUDA tensors launch the kernel or raise; CPU tensors take lk_patch_ref.
+    Either raises for win > 24, the kernel's limit.
     """
     global LAUNCHES
+    check_window("lk_patch", win)
     kw = dict(win=win, pty=pty, pcy=pcy, iters=iters, eps=eps,
               min_eig=min_eig, padded_hw=padded_hw)
     if img_cur.device.type == "cpu":
@@ -101,7 +106,6 @@ def lk_patch(img_prev: torch.Tensor, gx: torch.Tensor, gy: torch.Tensor,
     for name, t in (("localT", localT), ("local0", local0)):
         check(name, t, torch.float32, (n, 2), dev)
     check("frozen0", frozen0, torch.int32, (n, 1), dev)
-    check_window("lk_patch", win)
     if pty % 8 or pcy % 8 or pty < win + 2 or pcy < win + 2:
         raise ValueError(f"lk_patch: patch rows pty={pty}, pcy={pcy} must be "
                          f"multiples of 8 and hold a {win}x{win} window")

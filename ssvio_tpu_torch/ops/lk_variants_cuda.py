@@ -11,8 +11,8 @@ and the solve of `csrc/lk_klt.cuh` with kernel #1 (a Sampler each); the
 plain versions share `lk_cuda.klt_solve_ref` (a `blend` each):
 
 - #3, flavour sw: `lk_level_vmem_sw` (lk_pallas_variants.py:167) ->
-  csrc/lk_level_sw.cu. The (win+1)^2 window staged in shared memory, then
-  kernel #1's four-corner blend: kernel #1's values. win <= 11.
+  csrc/lk_level_sw.cu. A launch of kernel #1's level kernel and region
+  sampler: kernel #1's function and values. win <= 23.
 - #4, flavours ymm and pkmm: `lk_level_vmem_pk` (:104) ->
   csrc/lk_level_pk.cu. Separable: y blend, then x, in registers. win <= 16.
 - #5, flavours mm and mm_f32: `lk_level_vmem_mm` (:416) ->
@@ -23,28 +23,34 @@ plain versions share `lk_cuda.klt_solve_ref` (a `blend` each):
 What bounds them on the card: latency (`lk_cuda.py`). A 512-keypoint
 level is 512 warps, about 4 an SM; each iteration is one dependent chain
 (sample the window, two 5-step shuffle reductions, a 2x2 solve), and the
-level lasts as long as its slowest keypoint's chain. #3 restages each
-window through shared memory (two __syncwarp a window) and is slower than
-#1's L2 reads. #4 and #5 instead copy a search region of `cur` around the
-first search window into the warp's shared memory once a level
-(cp.async), sample every window inside it from there with no barrier in
-the loop (L2 outside it), and let each keypoint exit on its own: the JAX
-`mm` kernel's lockstep groups of 8 change no keypoint's answer (a frozen
-keypoint keeps its position) and buy nothing on a card where a warp holds
-one keypoint. mm keeps every operand of its two products in registers.
-The source notes (`csrc/*.cu`) give the details.
+level lasts as long as its slowest keypoint's chain. Each kernel copies a
+search region of `cur` around the first search window into the warp's
+shared memory once a level (cp.async), samples every window inside it from
+there with no barrier in the loop (L2 outside it), and lets each keypoint
+exit on its own: the JAX `mm` kernel's lockstep groups of 8 change no
+keypoint's answer (a frozen keypoint keeps its position) and buy nothing on
+a card where a warp holds one keypoint. mm keeps every operand of its two
+products in registers. The source notes (`csrc/*.cu`) give the details.
 
-Window limits (`_nvcc.MAX_WIN`): #3 takes win <= 11 where JAX's `sw` takes
-23; #4 and #5 take JAX's 16, where JAX's `mm` has no guard and would
-silently drop window rows above it (ROADMAP Queue 3). Each wrapper raises
-above its limit, on either device.
+Why #3 is kernel #1's launch: on the TPU, `sw` replaced the serial
+kernel's dynamic sublane roll with a static-slice switch; Hopper has no
+such roll, so the switch has no counterpart. Staging each window through
+shared memory (two __syncwarp a window) measured 1.27x kernel #1's device
+time on an H100 (PERF.md); staging a region once a level is what "staged"
+means on this card, and that is kernel #1's design.
+
+Window limits (`_nvcc.MAX_WIN`), the JAX kernels': #3 takes win <= 23
+(JAX's `sw` assert); #4 and #5 take 16, where JAX's `mm` has no guard and
+would silently drop window rows above it (ROADMAP Queue 3). Each wrapper
+raises above its limit, on either device.
 
 Each wrapper launches its kernel for CUDA tensors (or raises) and takes
 its plain version only for CPU tensors. Each kernel has its own launch
-counter (`LAUNCHES`); nothing else increments it. The #4 and #5 wrappers
-take `stats`, an int32 [3] CUDA tensor the kernel adds to: search windows
-read outside the staged region, keypoint-iterations, and (a maximum) the
-most iterations of any keypoint (chip_smoke.py; the path passes none).
+counter (`LAUNCHES`); nothing else increments it. Each takes `stats`, as
+`lk_cuda.lk_level` does: an int32 [3] CUDA tensor the kernel adds to
+(search windows read outside the staged region, keypoint-iterations, and
+as a maximum the most iterations of any keypoint; chip_smoke.py; the path
+passes none).
 `mm_windows` runs #5's samplers alone, for the checks that hold mm's
 tensor-core windows against the plain blend (chip_smoke.py,
 tests/test_torch_gpu.py); no path calls it.
@@ -82,7 +88,7 @@ def _entry(stem: str):
     """The level entry point `ssvio_<stem>` of csrc/<stem>.cu."""
     if stem not in _fns:
         fn = getattr(_library(stem), f"ssvio_{stem}")
-        extra = {"lk_level_sw": [],
+        extra = {"lk_level_sw": [ctypes.c_void_p],                 # stats
                  "lk_level_pk": [ctypes.c_void_p],                 # stats
                  "lk_level_mm": [ctypes.c_int, ctypes.c_void_p],   # use_bf16
                  }[stem]
@@ -90,13 +96,6 @@ def _entry(stem: str):
         fn.restype = ctypes.c_int
         _fns[stem] = fn
     return _fns[stem]
-
-
-def _stats_ptr(stats: Optional[torch.Tensor], dev) -> Optional[int]:
-    if stats is None:
-        return None
-    _nvcc.check("stats", stats, torch.int32, (3,), dev)
-    return stats.data_ptr()
 
 
 def _launch(counter: str, stem: str, planes, pts_prev, pts_guess, frozen0,
@@ -113,18 +112,23 @@ def lk_level_sw(img_prev: torch.Tensor, gx: torch.Tensor, gy: torch.Tensor,
                 pts_guess: torch.Tensor, frozen0: torch.Tensor, *, win: int,
                 iters: int, eps: float, min_eig: float,
                 padded_hw: Tuple[int, int],
+                stats: Optional[torch.Tensor] = None,
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel #3 (flavour "sw"), `lk_level_vmem_sw` semantics; the contract
     of `lk_cuda.lk_level`. CUDA tensors launch the kernel or raise; CPU
-    tensors take lk_level_sw_ref; either raises for win > 11."""
+    tensors take lk_level_sw_ref; either raises for win > 23. `stats`: see
+    the module note (CUDA only)."""
     _nvcc.check_window("lk_level_sw", win)
     kw = dict(win=win, iters=iters, eps=eps, min_eig=min_eig,
               padded_hw=padded_hw)
     planes = (img_prev, gx, gy, img_cur)
     if img_cur.device.type == "cpu":
+        if stats is not None:
+            raise ValueError("lk_level_sw: stats are the kernel's (CUDA)")
         return lk_level_sw_ref(*planes, pts_prev, pts_guess, frozen0, **kw)
     return _launch("lk_level_sw", "lk_level_sw", planes, pts_prev, pts_guess,
-                   frozen0, kw)
+                   frozen0, kw, extra=(lk_cuda.stats_ptr(stats,
+                                                         img_cur.device),))
 
 
 def lk_level_sw_ref(img_prev, gx, gy, img_cur, pts_prev, pts_guess, frozen0,
@@ -177,7 +181,8 @@ def lk_level_pk(img_prev: torch.Tensor, gx: torch.Tensor, gy: torch.Tensor,
             raise ValueError("lk_level_pk: stats are the kernel's (CUDA)")
         return lk_level_pk_ref(*planes, pts_prev, pts_guess, frozen0, **kw)
     return _launch("lk_level_pk", "lk_level_pk", planes, pts_prev, pts_guess,
-                   frozen0, kw, extra=(_stats_ptr(stats, img_cur.device),))
+                   frozen0, kw,
+                   extra=(lk_cuda.stats_ptr(stats, img_cur.device),))
 
 
 def lk_level_pk_ref(img_prev, gx, gy, img_cur, pts_prev, pts_guess, frozen0,
@@ -239,7 +244,7 @@ def lk_level_mm(img_prev: torch.Tensor, gx: torch.Tensor, gy: torch.Tensor,
         planes = tuple(p.to(torch.bfloat16) for p in planes)
     return _launch(counter, "lk_level_mm", planes, pts_prev, pts_guess,
                    frozen0, kw, plane_dtype=planes[0].dtype,
-                   extra=(int(use_bf16), _stats_ptr(stats, dev)))
+                   extra=(int(use_bf16), lk_cuda.stats_ptr(stats, dev)))
 
 
 def lk_level_mm_ref(img_prev, gx, gy, img_cur, pts_prev, pts_guess, frozen0,

@@ -159,7 +159,7 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
          kw),                                                  # strided
         ((*planes, p[:-1], p, frozen0), kw),                    # shape
         ((*planes, p.cpu(), p, frozen0), kw),                   # device
-        ((*planes, p, p, frozen0), dict(kw, win=13)),           # 169 pixels
+        ((*planes, p, p, frozen0), dict(kw, win=25)),           # past 24
         ((*planes, p, p, frozen0), dict(kw, padded_hw=(H - 8, W))),
     ]
     for args, k in bad:
@@ -206,6 +206,34 @@ def test_patch_kernel_matches_plain_version_on_gpu():
                   < 0.1).all(dim=-1).float().mean()) > 0.5
 
 
+@pytest.mark.parametrize("win", [16, 24])
+def test_patch_kernel_matches_plain_version_at_wide_windows_on_gpu(win):
+    """Kernel #2 at its wider pixel classes (8 pixels a lane at win 16, 18
+    at 24, its limit) against lk_patch_ref, with the checks of
+    test_patch_kernel_matches_plain_version_on_gpu."""
+    dev = _device()
+    img, img2, pts = _scene(218, (5.0, 3.0), sigma=5.0)
+    img_t = torch.from_numpy(img)
+    gx, gy = pyramid.sobel_gradients(img_t)
+    planes = [t.to(dev) for t in (img_t, gx, gy, torch.from_numpy(img2))]
+    p = torch.from_numpy(pts).to(dev)
+    valid = torch.ones(N, dtype=torch.bool, device=dev)
+    args, kw, _ = lk.patch_inputs(H, W, p, p, valid,
+                                  lk.LKParams(window=win))
+    before = lk_patch_cuda.LAUNCHES
+    out_k, flag_k = lk_patch_cuda.lk_patch(*planes, *args, **kw)
+    torch.cuda.synchronize()
+    assert lk_patch_cuda.LAUNCHES == before + 1
+    out_r, flag_r = lk_patch_cuda.lk_patch_ref(*planes, *args, **kw)
+    assert torch.equal(flag_k, flag_r)
+    assert torch.isfinite(out_k).all()
+    conv = torch.all(out_r == lk_patch_cuda.lk_patch_ref(
+        *planes, *args, **dict(kw, iters=kw["iters"] - 1))[0], dim=-1)
+    check = (flag_k[:, 0] > 0) & conv
+    assert int(check.sum()) >= N // 2
+    assert torch.max(torch.abs(out_k[check] - out_r[check])).item() < POS_ATOL
+
+
 def test_track_dispatch_takes_the_patch_kernel_above_budget(monkeypatch):
     """With the plane budget at 0 every level takes kernel #2 on CUDA
     tensors ("auto"), and agrees with its plain version ("ref")."""
@@ -243,7 +271,7 @@ def test_patch_wrapper_rejects_what_the_kernel_does_not_take():
         ((planes[0].double(), *planes[1:], *args), kw),
         ((*planes, *args), dict(kw, pty=36)),                 # not 8-aligned
         ((*planes, *args), dict(kw, padded_hw=(H, 128))),     # < 256 lanes
-        ((*planes, *args), dict(kw, win=13)),
+        ((*planes, *args), dict(kw, win=25)),                 # past 24
     ]
     for a, k in bad:
         with pytest.raises(ValueError):
@@ -299,9 +327,10 @@ def test_chunk_path_on_gpu_matches_run_step():
     np.testing.assert_allclose(tb[:, :, 3], ta[:, :, 3], atol=1e-3)
 
 
-# the variant kernels: (counter, wrapper, plain version, keywords); ymm and
-# pkmm name one function, lk_level_pk
+# the staged level kernels: (counter, wrapper, plain version, keywords);
+# serial is kernel #1, ymm and pkmm name one function, lk_level_pk
 VARIANTS = {
+    "serial": ("lk_level", lk_cuda.lk_level, lk_cuda.lk_level_ref, {}),
     "sw": ("lk_level_sw", lkv.lk_level_sw, lkv.lk_level_sw_ref, {}),
     "pk": ("lk_level_pk", lkv.lk_level_pk, lkv.lk_level_pk_ref, {}),
     "mm": ("lk_level_mm", lkv.lk_level_mm, lkv.lk_level_mm_ref,
@@ -317,6 +346,11 @@ COUNTER = {"sw": "lk_level_sw", "ymm": "lk_level_pk", "pkmm": "lk_level_pk",
 # one step within this many px on every live track
 MM_WINDOW_ULPS = 2.0
 MM_STEP_TOL_PX = 1e-4
+
+
+def _launches(counter):
+    """The launch count of the kernel behind `counter`."""
+    return lk_cuda.LAUNCHES if counter == "lk_level" else lkv.LAUNCHES[counter]
 
 
 def _window_ulps(got, want):
@@ -341,23 +375,25 @@ def _variant_level(dev, hw=(190, 250), seed=214, stretch=False):
 
 
 @pytest.mark.parametrize("flavour,win", [
-    ("sw", 11), ("pk", 11), ("pk", 16), ("mm", 11), ("mm", 16),
-    ("mm_f32", 11), ("mm_f32", 16)])
+    ("sw", 11), ("sw", 16), ("sw", 23), ("serial", 16), ("serial", 24),
+    ("pk", 11), ("pk", 16), ("mm", 11), ("mm", 16), ("mm_f32", 11),
+    ("mm_f32", 16)])
 def test_variant_kernel_matches_plain_version_on_gpu(flavour, win):
-    """Kernels #3-#5 on _variant_level against their plain versions, #4
-    and #5 at win 11 (4 pixels a lane) and 16 (8; two k-steps for mm); sw
-    also against kernel #1, whose values it takes."""
+    """The staged kernels on _variant_level against their plain versions
+    at each pixel class they take: 4 a lane (win 11), 8 (16; two k-steps
+    for mm) and 18 (#1 at its limit 24, #3 at 23); sw also against kernel
+    #1, whose kernel it launches, bit for bit."""
     dev = _device()
     counter, fn, ref, extra = VARIANTS[flavour]
     args = _variant_level(dev)
     p, frozen0 = args[4], args[6]
     kw = dict(KW, win=win, padded_hw=(192, 256), **extra)
-    before = lkv.LAUNCHES[counter]
+    before = _launches(counter)
     out_k, flag_k = fn(*args, **kw)
     torch.cuda.synchronize()
-    assert lkv.LAUNCHES[counter] == before + 1
+    assert _launches(counter) == before + 1
     out_r, flag_r = ref(*args, **kw)
-    assert lkv.LAUNCHES[counter] == before + 1   # the plain version: no count
+    assert _launches(counter) == before + 1   # the plain version: no count
     assert torch.equal(flag_k, flag_r)
     assert torch.isfinite(out_k).all()
     # frozen keypoints keep their guess (less r, plus r: an ulp or so)
@@ -372,8 +408,8 @@ def test_variant_kernel_matches_plain_version_on_gpu(flavour, win):
     assert int((live & conv).sum()) >= 45 // 2
     assert float(d[live & conv].max()) < POS_ATOL
     if flavour == "sw":
-        out_1, _ = lk_cuda.lk_level(*args, **dict(KW, padded_hw=(192, 256)))
-        assert float(torch.max(torch.abs(out_k - out_1))) == 0.0
+        out_1, flag_1 = lk_cuda.lk_level(*args, **dict(kw))
+        assert torch.equal(out_k, out_1) and torch.equal(flag_k, flag_1)
 
 
 @pytest.mark.parametrize("win", [11, 16])
@@ -451,7 +487,8 @@ def test_variant_wrapper_rejects_what_the_kernel_does_not_take(flavour):
     p = torch.from_numpy(pts).to(dev)
     frozen0 = torch.zeros((N, 1), dtype=torch.int32, device=dev)
     kw = dict(KW, padded_hw=(H, W), **extra)
-    before = dict(lkv.LAUNCHES)
+    before = _launches(counter)
+    stats = torch.zeros(3, dtype=torch.int32, device=dev)
     bad = [
         ((planes[0].double(), *planes[1:], p, p, frozen0), kw),
         ((planes[0].to(torch.bfloat16), *planes[1:], p, p, frozen0), kw),
@@ -460,18 +497,17 @@ def test_variant_wrapper_rejects_what_the_kernel_does_not_take(flavour):
         ((*planes, p[:-1], p, frozen0), kw),                    # shape
         ((*planes, p.cpu(), p, frozen0), kw),                   # device
         ((*planes, p, p, frozen0.long()), kw),                  # dtype
-        # one past the kernel's window limit: 12 for sw, 17 for pk and mm
+        # one past the kernel's window limit: 25 for serial, 24 for sw, 17
+        # for pk and mm
         ((*planes, p, p, frozen0), dict(kw, win=_nvcc.MAX_WIN[counter] + 1)),
         ((*planes, p, p, frozen0), dict(kw, padded_hw=(H - 8, W))),
+        ((*planes, p, p, frozen0), dict(kw, stats=stats.long())),
+        ((*planes, p, p, frozen0), dict(kw, stats=stats[:2])),
     ]
-    if flavour != "sw":
-        stats = torch.zeros(3, dtype=torch.int32, device=dev)
-        bad += [((*planes, p, p, frozen0), dict(kw, stats=stats.long())),
-                ((*planes, p, p, frozen0), dict(kw, stats=stats[:2]))]
     for args, k in bad:
         with pytest.raises(ValueError):
             fn(*args, **k)
-    assert lkv.LAUNCHES == before
+    assert _launches(counter) == before
 
 
 # phase 3b's share of the live tracks that must agree within POS_ATOL
@@ -480,11 +516,11 @@ PHASE_3B_AGREE_SHARE = 0.95
 
 
 @pytest.mark.parametrize("hw", [(188, 248), (190, 250), (189, 249)])
-@pytest.mark.parametrize("flavour", ["pk", "mm", "mm_f32"])
+@pytest.mark.parametrize("flavour", ["serial", "sw", "pk", "mm", "mm_f32"])
 def test_search_leaves_the_staged_region_on_gpu(flavour, hw):
-    """#4 and #5 with guesses 12 px off the true motion in x and in y, so
-    that searches walk past the region staged around their first window
-    and read L2, and 6 keypoints within 8 px of the true-dims edge of a
+    """#1, #3, #4 and #5 with guesses 12 px off the true motion in x and in
+    y, so that searches walk past the region staged around their first
+    window and read L2, and 6 keypoints within 8 px of the true-dims edge of a
     level whose padded dims (192x256) exceed them, so that the region and
     the windows reach past (H, W) and read 0. The widths take each copy
     path: 248 rows are 16-byte aligned, 250 float32 rows 4-byte (bf16
@@ -508,10 +544,10 @@ def test_search_leaves_the_staged_region_on_gpu(flavour, hw):
     frozen0 = args[6]
     kw = dict(KW, padded_hw=(192, 256), **extra)
     stats = torch.zeros(3, dtype=torch.int32, device=dev)
-    before = lkv.LAUNCHES[counter]
+    before = _launches(counter)
     out_k, flag_k = fn(*args, **kw, stats=stats)
     torch.cuda.synchronize()
-    assert lkv.LAUNCHES[counter] == before + 1
+    assert _launches(counter) == before + 1
     out_r, flag_r = ref(*args, **kw)
     n_out, kp_iters, max_iters = (int(v) for v in stats.cpu())
     assert n_out > 0 and kp_iters >= n_out and 1 <= max_iters <= KW["iters"]

@@ -155,6 +155,47 @@ def test_track_above_budget_matches_jax(patch_everywhere):
     np.testing.assert_allclose(np.median(flow, axis=0), [3.2, -2.1], atol=0.1)
 
 
+def test_patch_ref_matches_jax_hbm_patch_kernel_at_win_16(patch_everywhere):
+    """Kernel #2's function at win 16, 8 pixels a lane on the card (the
+    patches grow with the window: pty 32, pcy 48), against the JAX
+    HBM-patch kernel in interpret mode, with the rules of
+    test_patch_ref_matches_jax_hbm_patch_kernel."""
+    shift = (3, 2)
+    scene = _scene(shift, seed=309)
+    img, img2, gx, gy, pts, valid = scene
+    out_j, ok_j = lk_j._track_level(
+        *[jnp.asarray(a) for a in (img, img2, gx, gy, pts, pts, valid)],
+        lk_j.LKParams(backend="pallas_interpret", window=16))
+    out_t, ok_t = lk_t._track_level(
+        *[torch.from_numpy(a) for a in (img, img2, gx, gy, pts, pts, valid)],
+        lk_t.LKParams(backend="ref", window=16))
+    out_j, ok_j, out_t, ok_t = (np.asarray(out_j), np.asarray(ok_j),
+                                out_t.numpy(), ok_t.numpy())
+    np.testing.assert_array_equal(ok_t, ok_j)
+    assert ok_t.sum() >= 0.8 * N
+    np.testing.assert_allclose(out_t[ok_t], out_j[ok_t], atol=POS_ATOL)
+    assert _hits(out_t, ok_t, pts, shift).mean() > 0.8
+
+
+def test_patch_wrapper_takes_windows_up_to_its_kernels_limit():
+    """The wrapper raises one past kernel #2's window limit (24, 18 pixels
+    a lane; the JAX kernel's 32-row slab holds no wider window at every row
+    offset), on the CPU too, and at the limit runs its plain version
+    there."""
+    img, img2, gx, gy, pts, valid = _scene((2.0, 1.0), seed=311)
+    t = [torch.from_numpy(a) for a in (img, gx, gy, img2)]
+    p = torch.from_numpy(pts)
+    for win in (24, 25):
+        args, kw, _ = lk_t.patch_inputs(H, W, p, p, torch.from_numpy(valid),
+                                        lk_t.LKParams(window=win))
+        if win == 25:
+            with pytest.raises(ValueError, match="outside 1..24"):
+                lk_patch_cuda.lk_patch(*t, *args, **kw)
+            continue
+        out, flag = lk_patch_cuda.lk_patch(*t, *args, **kw)
+        assert bool(flag.any()) and bool(torch.isfinite(out).all())
+
+
 def test_patch_wrapper_on_cpu_is_the_plain_version():
     img, img2, gx, gy, pts, valid = _scene((2.0, 1.0), seed=307)
     t = [torch.from_numpy(a) for a in (img, gx, gy, img2)]

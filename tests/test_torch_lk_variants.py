@@ -46,8 +46,8 @@ from test_torch_lk import _shift
 from test_torch_ops import _texture, one_torch_thread  # noqa: F401
 
 NEW = ("sw", "ymm", "pkmm", "mm", "mm_f32")
-POS_ATOL = {"sw": 1e-4, "ymm": 1e-4, "pkmm": 1e-4, "mm_f32": 1e-4,
-            "mm": 1e-3}
+POS_ATOL = {"serial": 1e-4, "sw": 1e-4, "ymm": 1e-4, "pkmm": 1e-4,
+            "mm_f32": 1e-4, "mm": 1e-3}
 MAX_CAPPED_SHARE = 0.05
 MM_MIN_AGREE_SHARE = 0.75
 # true level dims (padded to 64x256 and 192x256), keypoints, shift (px)
@@ -117,6 +117,23 @@ def test_level_plain_version_matches_jax_variant_at_wide_windows(kernel, win):
     share rule alone, as chip_smoke.py's phase 3b holds it: at win 16 one
     track of this scene converges 0.16 px from the JAX one, inside the bf16
     noise floor, after an ulp flipped a rounding."""
+    _check_wide_window(kernel, win)
+
+
+@pytest.mark.parametrize("kernel,win", [("serial", 16), ("serial", 24),
+                                        ("sw", 16), ("sw", 23)])
+def test_level_plain_version_matches_jax_kernel1_at_wide_windows(kernel,
+                                                                  win):
+    """Kernel #1's function (serial, and sw, which is #1's kernel) at the
+    pixel classes above the path's: 8 pixels a lane (win 16) and 18 (the
+    kernels' limits: 24 for serial, where JAX's 32-row slab last holds the
+    window at every row offset, 23 for sw, JAX's assert), against
+    lk_level_vmem and lk_level_vmem_sw in interpret mode, with the rules of
+    test_level_plain_version_matches_jax_variant."""
+    _check_wide_window(kernel, win)
+
+
+def _check_wide_window(kernel, win):
     scene = _scene("64x256")
     img, img2, gx, gy, pts, valid = scene
     out_j, ok_j = lk_j._track_level(
@@ -437,11 +454,13 @@ def test_sw_plain_version_is_kernel1s_function():
     assert float(torch.max(torch.abs(a[0] - c[0]))) < 1e-3
 
 
-# each level wrapper, its keywords and the largest window its kernel takes:
-# 11 for kernels #1-#3, 16 for #4 and #5 (JAX's `pk` limit; JAX's `mm`
-# has no guard and silently drops window rows past 16)
-WIN_LIMITS = {"lk_level": (lk_cuda.lk_level, {}, 11),
-              "lk_level_sw": (lkv.lk_level_sw, {}, 11),
+# each level wrapper, its keywords and the largest window its kernel takes
+# (the JAX kernels'): 24 for kernel #1 (JAX's serial kernel has no guard
+# and wraps above it), 23 for #3 (JAX's `sw` assert), 16 for #4 and #5
+# (JAX's `pk` limit; JAX's `mm` has no guard and silently drops window
+# rows past 16)
+WIN_LIMITS = {"lk_level": (lk_cuda.lk_level, {}, 24),
+              "lk_level_sw": (lkv.lk_level_sw, {}, 23),
               "lk_level_pk": (lkv.lk_level_pk, {}, 16),
               "lk_level_mm": (lkv.lk_level_mm, {"use_bf16": True}, 16),
               "lk_level_mm_f32": (lkv.lk_level_mm, {"use_bf16": False}, 16)}
