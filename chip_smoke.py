@@ -18,7 +18,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    version on the same inputs, for a temporal pair and a stereo pair, coarse
    to fine as lk.track seeds them. Flags must be equal and converged
    positions within POS_TOL_PX; both are timed with CUDA events. Kernel
-   #2 is also held at its widest window, at RobotCar level 0.
+   #2's chain is read there too (_chain: slope, fixed part, windows read
+   outside the staged region), and at RobotCar level 0 it is also held at
+   its widest window and with guesses REGION_OFFSET_PX off
+   (_check_patch_region_fallback).
 3b. flavours vs plain: at every KITTI level of phase 3, on the same inputs,
    each `Settings.lk_kernel` flavour's kernel (serial: #1 again, sw: #3,
    ymm and pkmm: #4, one function, run once; mm and mm_f32: #5;
@@ -57,7 +60,28 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    statuses imply and kernel #1 never, and pkmm's run equal to ymm's;
    prints ms per frame and the status and position differences from phase
    4's serial run.
-7. prints the kernel table as one JSON line (with each kernel's bound,
+7. place recognition at KITTI width (run before phase 6, so that phase
+   6's cut sees its time): the bench configuration drives a circle that
+   passes over its start again (LOOP_* below) through run_step with loop
+   closing off, with phase 4's checks. Every keyframe's image, features
+   and landmarks are kept and run through the loop-closing ops on the card
+   (512 features x Settings.loop_desc_scales octaves):
+   loopclosing.loop_describe on every keyframe, bow.train (host) on the
+   first half lap's descriptors, bow.transform into a database,
+   score_l1_database for the last keyframe (the best candidate at least
+   LOOP_MIN_GAP_KF keyframes older must be one of the first pass
+   within LOOP_MAX_DIST_M of the query's true position), the multi-scale
+   Hamming match against it, pnp.pnp_ransac on the matched landmarks (ok,
+   and T_cw within LOOP_PNP_TOL_* of the ground truth), and pgo.optimize
+   on the keyframes' pose graph with drifted odometry and that loop edge
+   (dense) and on a circle of PGO_CG_POSES poses (above DENSE_MAX_POSES:
+   CG): both must cut the error to PGO_MAX_ERR_SHARE.
+   Card against the port's own CPU result on the same inputs: equal for
+   words_of, the Hamming match, fast_check_sparse and the descriptors
+   from one angle array; within the CPU tests' tolerances for
+   ic_angle_integral, transform, pnp_ransac and pgo.optimize. Prints each
+   op's CUDA-event ms beside the card's name and power limit.
+8. prints the kernel table as one JSON line (with each kernel's bound,
    bound_ms: the plane pixels the level needs over the memory rate, or
    its operations over the peak rate, BOUND_*), then the result line.
 """
@@ -74,11 +98,13 @@ import numpy as np
 import torch
 
 from ssvio_tpu_torch import frontend as fe
+from ssvio_tpu_torch import interop, loopclosing
 from ssvio_tpu_torch.config import (Settings, bench_settings,
                                     robotcar_xb3_wide_settings)
 from ssvio_tpu_torch.dataio import synthetic, synthetic_torch
 from ssvio_tpu_torch.eval import ate
-from ssvio_tpu_torch.ops import _nvcc, lk, lk_cuda, lk_patch_cuda, sampling
+from ssvio_tpu_torch.ops import (_nvcc, bow, fast, lk, lk_cuda, lk_patch_cuda,
+                                 orb, pgo, pnp, pyramid, sampling, se3)
 from ssvio_tpu_torch.ops import lk_variants_cuda as lkv
 from ssvio_tpu_torch.system import System
 
@@ -134,8 +160,32 @@ MM_STEP_TOL_PX = 1e-4
 FLAVOUR_FRAMES_CUT = 48     # phase 6 frames of the flavours other than mm
                             # when the script would pass SCRIPT_BUDGET_S,
 SCRIPT_BUDGET_S = 420.0     # which keeps it well inside its 1200 s limit
-                            # on a slow host (one H100: 182-246 s in all)
+                            # on a slow host (one H100: 288-351 s in all)
 PLAIN_REPS = 5              # timed calls of a plain version (~30 ms each)
+# Phase 7: a circle of LOOP_RADIUS_M driven once in LOOP_LAP_FRAMES frames
+# (1.5 degrees and 0.26 m a frame, the turn eased in over LOOP_EASE_FRAMES)
+# and LOOP_OVERLAP_FRAMES further, over the start again, between walls
+# LOOP_WORLD["wall_x"] from the centre line (the circle spans x in [0, 20]).
+LOOP_RADIUS_M = 10.0
+LOOP_LAP_FRAMES = 240
+LOOP_EASE_FRAMES = 8
+LOOP_OVERLAP_FRAMES = 24
+LOOP_WORLD = dict(wall_x=24.0, ceiling_y=-5.0)
+LOOP_MIN_GAP_KF = 10      # Settings.loop_min_age is 20, more than the ~20
+                          # keyframes of this run leave room for
+LOOP_MAX_DIST_M = 4.0     # keyframes lie ~3.5 m apart
+LOOP_PNP_TOL_M = 0.5      # ATE_MAX_M: the candidate's landmarks carry the
+LOOP_PNP_TOL_RAD = 0.05   # run's own error
+PGO_DRIFT = 0.05          # per odometry edge, on the twist (rotation x 0.3)
+PGO_CG_POSES = 600        # tests/test_pgo.py:122's circle, in 640 slots
+PGO_MAX_ERR_SHARE = 0.35  # tests/test_pgo.py:90 and :135
+# card against CPU, the CPU tests' tolerances
+# (tests/test_torch_loop_ops.py, tests/test_torch_loop_geom.py)
+INTEGRAL_MEDIAN_TOL, INTEGRAL_WIDE_TOL, INTEGRAL_WIDE_MIN_SHARE = \
+    1e-3, 2e-2, 0.98
+TRANSFORM_TOL = 1e-6
+PNP_POSE_TOL = 1e-3
+PGO_DENSE_TOL, PGO_CG_TOL = 1e-4, 1e-3
 KERNELS = {
     "lk_level": dict(source="ssvio_tpu_torch/csrc/lk_level.cu",
                      replaces="ssvio_tpu/ops/lk_pallas.py:344"),
@@ -233,8 +283,8 @@ def phase_build() -> None:
                 print("  ptxas:", ln.strip())
 
 
-def _time_ms(fn, reps=20) -> float:
-    for _ in range(3):
+def _time_ms(fn, reps=20, warmup=3) -> float:
+    for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -244,6 +294,17 @@ def _time_ms(fn, reps=20) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _timed_once(fn):
+    """(fn(), its CUDA-event ms): one call, no warm-up."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def _device_ms(fn, reps=20, tries=3) -> float:
@@ -274,7 +335,8 @@ def _device_ms(fn, reps=20, tries=3) -> float:
 
 def _level_pair(name, pa, pb, l, pts, guess, valid, params):
     """The kernel `name` and its plain version as closures over the same
-    inputs at level l. Returns (kernel(), plain(iters, **counts),
+    inputs at level l. Returns (kernel(**overrides of its keywords, e.g.
+    iters, stats), plain(iters, **counts),
     to_global(out): the output as level positions, frozen0, level
     arguments (planes, pts, guess, frozen0) or None for kernel #2, the
     padded dims the plain version pads to)."""
@@ -283,7 +345,8 @@ def _level_pair(name, pa, pb, l, pts, guess, valid, params):
     r = params.window // 2
     if name == "lk_patch":
         args, kw, org_C = lk.patch_inputs(h, w, pts, guess, valid, params)
-        return (lambda: lk_patch_cuda.lk_patch(*planes, *args, **kw),
+        return (lambda **o: lk_patch_cuda.lk_patch(*planes, *args,
+                                                   **dict(kw, **o)),
                 lambda it, **c: lk_patch_cuda.lk_patch_ref(
                     *planes, *args, **dict(kw, iters=it), **c),
                 lambda out: org_C + r + out, args[-1], None,
@@ -293,7 +356,8 @@ def _level_pair(name, pa, pb, l, pts, guess, valid, params):
     kw = dict(win=params.window, eps=params.eps, min_eig=params.min_eig,
               padded_hw=lk.padded_dims(h, w))
     args = (*planes, pts, guess, frozen0)
-    return (lambda: lk_cuda.lk_level(*args, iters=params.iters, **kw),
+    return (lambda **o: lk_cuda.lk_level(
+                *args, **dict(kw, iters=params.iters, **o)),
             lambda it, **c: lk_cuda.lk_level_ref(*args, iters=it, **kw, **c),
             lambda out: out, frozen0, (args, kw), kw["padded_hw"])
 
@@ -394,9 +458,17 @@ def phase_kernels_vs_plain(tag: str, s: Settings, dev):
                                    h, w)
             if name == "lk_patch" and pair == "temporal":
                 _check_patch_wide(pa, pb, l, pts, guess, feat.valid, params)
+                _check_patch_region_fallback(pa, pb, l, pts, guess,
+                                             feat.valid, params)
             ms_k = _time_ms(kern)
             ms_r = _time_ms(lambda: plain(params.iters), reps=PLAIN_REPS)
-            dev_ms = _device_ms(kern) if pair == "temporal" else None
+            chain = None
+            if name == "lk_patch":      # phase 3b has kernel #1's chain
+                chain = _chain(kern, dict(pair=pair, out_1=out_k,
+                                          device_ms_1=None))
+                dev_ms = chain["device_ms"]
+            else:
+                dev_ms = _device_ms(kern) if pair == "temporal" else None
             n_kp = pts.shape[0]
             work = _work(plain, params.iters, padded_hw, (h, w))
             kp_iters = work["kp_iters"]
@@ -410,13 +482,15 @@ def phase_kernels_vs_plain(tag: str, s: Settings, dev):
                   f"{float(moved.median()) if res['live'] else 0:.2f} px "
                   f"kernel {ms_k:.4f} ms plain {ms_r:.4f} ms kp_iters "
                   f"{kp_iters} max_iters {work['max_iters']} needed_px "
-                  f"{work['pixels']} bound {b_ms:.6f} ms ({b_by})"
-                  + (f" device {dev_ms:.4f} ms" if dev_ms else ""))
+                  f"{work['pixels']} bound {b_ms:.6f} ms ({b_by}) "
+                  + (_chain_text(chain) if chain else
+                     f"device {dev_ms:.4f} ms" if dev_ms else ""))
             rows.append(dict(config=tag, pair=pair, level=l, kernel=name,
                              pixels=h * w, max_abs_err=res["max_abs_err"],
                              ms=ms_k, plain_ms=ms_r, bound_ms=b_ms,
                              bound_by=b_by, kp_iters=kp_iters,
-                             needed_px=work["pixels"], device_ms=dev_ms))
+                             needed_px=work["pixels"],
+                             **(chain or dict(device_ms=dev_ms))))
             if level_args is not None:
                 levels.append(dict(pair=pair, level=l, h=h, w=w,
                                    args=level_args, out_1=out_k,
@@ -440,6 +514,33 @@ def _check_patch_wide(pa, pb, l, pts, guess, valid, params):
                       wide.iters, frozen0, to_global, h, w)
     print(f"  win {wide.window} [lk_patch] temporal level {l}: "
           + json.dumps(res))
+
+
+def _check_patch_region_fallback(pa, pb, l, pts, guess, valid, params):
+    """Kernel #2 at level l with every guess REGION_OFFSET_PX off the one
+    phase 3 gave (its patch boxes follow the guesses), so that searches
+    walk past the staged region and read L2: _check_region_fallback's
+    checks."""
+    h, w = pa.levels[l].shape
+    off = (guess + torch.tensor(REGION_OFFSET_PX,
+                                device=guess.device)).contiguous()
+    kern, plain, to_global, frozen0, _, _ = _level_pair(
+        "lk_patch", pa, pb, l, pts, off, valid, params)
+    stats = torch.zeros(3, dtype=torch.int32, device=guess.device)
+    out_k, flag_k = kern(stats=stats)
+    res, _, _ = _hold("region fallback lk_patch", out_k, flag_k, plain,
+                      params.iters, frozen0, to_global, h, w, mm=True)
+    n_out, kp_iters, max_iters = (int(v) for v in stats.cpu())
+    print(f"  region fallback [lk_patch] temporal level {l}, guesses "
+          f"{REGION_OFFSET_PX} px off: outside_region {n_out} of {kp_iters} "
+          f"search windows, max_iters {max_iters}, " + json.dumps(res))
+    if n_out <= 0:
+        raise AssertionError("region fallback lk_patch: no search window "
+                             "left the staged region")
+    if not res["max_abs_err"] <= POS_TOL_PX:
+        raise AssertionError("region fallback lk_patch: converged positions "
+                             f"differ by {res['max_abs_err']} px > "
+                             f"{POS_TOL_PX}")
 
 
 def phase_flavours_vs_plain(levels) -> list:
@@ -509,7 +610,8 @@ def _chain(kern, lv) -> dict:
     """A staged kernel's chain at one level, from its `stats`: the most
     iterations of any keypoint and the search windows read outside the
     staged region; at temporal levels its device time, the ratio to kernel
-    #1's at the level, the time per iteration as a slope, (device at the
+    #1's at the level (kernel #2 has none: lv["device_ms_1"] None), the
+    time per iteration as a slope, (device at the
     path's iterations - device at one) / (the difference in longest chain,
     max_iters - 1), and the fixed part (device at one less one slope:
     template windows, staging, write-back, launch)."""
@@ -520,7 +622,8 @@ def _chain(kern, lv) -> dict:
     out["outside"], _, out["max_iters"] = (int(v) for v in stats.cpu())
     if lv["pair"] == "temporal":
         out["device_ms"] = _device_ms(kern)
-        out["ratio_to_1"] = out["device_ms"] / lv["device_ms_1"]
+        if lv["device_ms_1"] is not None:
+            out["ratio_to_1"] = out["device_ms"] / lv["device_ms_1"]
         if out["max_iters"] > 1:        # one iteration: a chain of 1
             ms_1 = _device_ms(functools.partial(kern, iters=1))
             us = 1e3 * (out["device_ms"] - ms_1) / (out["max_iters"] - 1)
@@ -531,8 +634,9 @@ def _chain(kern, lv) -> dict:
 def _chain_text(c) -> str:
     s = f"max_iters {c['max_iters']} outside_region {c['outside']}"
     if c["device_ms"] is not None:
-        s += (f" device {c['device_ms']:.4f} ms ratio_to_1 "
-              f"{c['ratio_to_1']:.3f}")
+        s += f" device {c['device_ms']:.4f} ms"
+        if c["ratio_to_1"] is not None:
+            s += f" ratio_to_1 {c['ratio_to_1']:.3f}"
         if c["us_per_iter"] is not None:
             s += (f" us_per_iter {c['us_per_iter']:.4f} (slope) fixed "
                   f"{c['fixed_ms']:.4f} ms")
@@ -552,7 +656,8 @@ def _check_region_fallback(levels):
     at least MM_MIN_AGREE_SHARE of the live tracks within POS_TOL_PX, and
     (not mm) every converged one. Starting 12 px off, a quarter to a half
     of the tracks still step at the cap (one H100), so phase 3's bound on
-    that share does not apply here; the agree share holds them instead."""
+    that share does not apply here; the agree share holds them instead.
+    (Kernel #2: _check_patch_region_fallback, in phase 3.)"""
     lv = _find_level(levels, REGION_LEVEL)
     (args, kw), h, w = lv["args"], lv["h"], lv["w"]
     guess = (args[5] + torch.tensor(REGION_OFFSET_PX,
@@ -896,9 +1001,377 @@ def phase_flavours(s: Settings, dev, serial: dict, t_start: float) -> dict:
     return out
 
 
+def _loop_drive() -> np.ndarray:
+    """[N, 3, 4] T_wc on a circle through the origin, heading along the
+    tangent (synthetic.loop_trajectory's), a lap and LOOP_OVERLAP_FRAMES
+    more, the turn rate eased in over the first frames."""
+    n = LOOP_LAP_FRAMES + LOOP_OVERLAP_FRAMES
+    step = 2.0 * np.pi / LOOP_LAP_FRAMES * np.minimum(
+        1.0, (np.arange(n) + 1.0) / LOOP_EASE_FRAMES)
+    ang = np.concatenate([[0.0], np.cumsum(step)[:-1]])
+    c, sn = np.cos(ang), np.sin(ang)
+    poses = np.zeros((n, 3, 4))
+    poses[:, 0, 0], poses[:, 0, 2], poses[:, 1, 1] = c, sn, 1.0
+    poses[:, 2, 0], poses[:, 2, 2] = -sn, c
+    poses[:, 0, 3] = LOOP_RADIUS_M * sn
+    poses[:, 2, 3] = LOOP_RADIUS_M * (1.0 - c)
+    return poses
+
+
+def _match_multiscale(desc_q, val_q, desc_c, val_c, F: int, S: int):
+    """The loop closer's multi-scale brute-force Hamming match
+    (ssvio_tpu/loopclosing.py::_match_impl, the adaptive gate): the
+    [S F, S F] distance matrix reduced over both octave axes to [F, F],
+    then best match, mutual check and d <= max(2 min_d, 30). Returns
+    (best_j [F], dist [F], ok [F])."""
+    d = orb.hamming_distance(desc_q[:, None, :], desc_c[None, :, :])
+    big = 1 << 20
+    d = torch.where(val_q[:, None] & val_c[None, :], d,
+                    torch.full_like(d, big))
+    d = d.reshape(S, F, S, F).amin(dim=(0, 2))
+    best_j = torch.argmin(d, dim=1)
+    best = torch.amin(d, dim=1)
+    thresh = torch.clamp(2 * torch.min(best), min=30)
+    back = torch.argmin(d, dim=0)
+    mutual = back[best_j] == torch.arange(F, device=d.device)
+    return best_j, best, (best <= thresh) & (best < big) & mutual
+
+
+def _ang_diff(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    d = a.double().cpu() - b.double().cpu()
+    return torch.abs(torch.atan2(torch.sin(d), torch.cos(d)))
+
+
+def _twist_err(A: torch.Tensor, B: torch.Tensor):
+    """(|rho|, |phi|) of log(A B^-1), on the CPU."""
+    xi = se3.log(se3.compose(A.cpu(), se3.inverse(B.cpu())))
+    return float(torch.linalg.norm(xi[:3])), float(torch.linalg.norm(xi[3:]))
+
+
+def _centre_err(T_cw, centres_true: np.ndarray) -> np.ndarray:
+    """Per-pose distance of the camera centres of T_cw [K, 3, 4] from
+    centres_true [K, 3]."""
+    c = se3.translation(se3.inverse(torch.as_tensor(
+        np.asarray(T_cw, np.float32)))).numpy()
+    return np.linalg.norm(c - centres_true, axis=1)
+
+
+def _circle_graph(n: int, slots: int, drift: float, seed: int):
+    """tests/test_pgo.py's graph: true poses on a circle of radius 10 m,
+    exact odometry edges, estimates integrated from drifted odometry, loop
+    edges last->first and across the middle; the first pose fixed; `slots`
+    pose slots. Returns (PGOProblem of CPU tensors, true centres [n, 3])."""
+    rng = np.random.default_rng(seed)
+    ang = 2 * np.pi * np.arange(n) / n
+    c, sn = np.cos(ang), np.sin(ang)
+    T_wc = np.zeros((n, 3, 4), np.float32)
+    T_wc[:, 0, 0], T_wc[:, 0, 2], T_wc[:, 1, 1] = c, sn, 1.0
+    T_wc[:, 2, 0], T_wc[:, 2, 2] = -sn, c
+    T_wc[:, 0, 3], T_wc[:, 2, 3] = 10.0 * sn, 10.0 * (1 - c)
+    T_true = se3.inverse_np(T_wc)
+    Zs = se3.compose_np(T_true[1:], se3.inverse_np(T_true[:-1]))
+    noise = rng.normal(0, drift, (n - 1, 6)).astype(np.float32)
+    noise[:, 3:] *= 0.3
+    Zn = se3.compose(se3.exp(torch.from_numpy(noise)),
+                     torch.from_numpy(Zs)).numpy()
+    est = [T_true[0]]
+    for k in range(n - 1):
+        est.append(se3.compose_np(Zn[k], est[-1]))
+    loops = [(n - 1, 0), (n // 2, n // 2 - 1)]
+    ei = np.concatenate([np.arange(1, n), [i for i, _ in loops]])
+    ej = np.concatenate([np.arange(0, n - 1), [j for _, j in loops]])
+    Z = np.concatenate([Zs, np.stack([se3.compose_np(
+        T_true[i], se3.inverse_np(T_true[j])) for i, j in loops])])
+    poses = np.tile(np.eye(3, 4, dtype=np.float32), (slots, 1, 1))
+    poses[:n] = np.stack(est)
+    valid = np.arange(slots) < n
+    prob = pgo.PGOProblem(
+        poses=torch.from_numpy(poses), pose_valid=torch.from_numpy(valid),
+        pose_fixed=torch.from_numpy(np.arange(slots) == 0),
+        edge_i=torch.from_numpy(ei.astype(np.int32)),
+        edge_j=torch.from_numpy(ej.astype(np.int32)),
+        edge_Z=torch.from_numpy(Z.astype(np.float32)),
+        edge_valid=torch.ones(len(ei), dtype=torch.bool),
+        edge_weight=torch.ones(len(ei), dtype=torch.float32))
+    return prob, T_wc[:, :, 3]
+
+
+def phase_place_recognition(s: Settings, dev, card: str) -> dict:
+    """Phase 7 (module docstring)."""
+    print(f"place recognition [kitti_bench]: a circle of {LOOP_RADIUS_M:g} m "
+          f"in {LOOP_LAP_FRAMES} frames and {LOOP_OVERLAP_FRAMES} more")
+    cam = s.cam_left
+    F, S = s.max_features, s.loop_desc_scales
+    sys_ = System(s, enable_backend=True, enable_loop_closing=False,
+                  device=dev)
+    poses = _loop_drive()
+    n = len(poses)
+    t0 = time.perf_counter()
+    L, R = synthetic_torch.render_stereo_sequence_device(
+        synthetic.SyntheticWorld(seed=4, **LOOP_WORLD), poses, cam.fx, cam.fy,
+        cam.cx, cam.cy, s.baseline, s.image_width, s.image_height,
+        pad_w=sys_.w, pad_h=sys_.h, device=dev)
+    torch.cuda.synchronize()
+    print(f"  rendered {n} stereo pairs on the card in "
+          f"{time.perf_counter() - t0:.2f} s")
+
+    # --- the run that feeds it: keyframes with image, features, landmarks
+    _zero_launches()
+    before, after, ms, kfs = [], [], [], []
+    for i in range(n):
+        before.append(sys_.status)
+        t = time.perf_counter()
+        sys_.run_step(L[i], R[i], i / s.fps)
+        ms.append(1e3 * (time.perf_counter() - t))
+        after.append(sys_.status)
+        if len(sys_.keyframes) > len(kfs):
+            feat, m = sys_.feat, sys_.map
+            slot = torch.clamp(feat.lm_slot, min=0).long()
+            has_lm = feat.valid & (feat.lm_slot >= 0) & m.lm_valid[slot] \
+                & (m.lm_gid[slot] == feat.lm_gid)
+            kfs.append(dict(rec=sys_.keyframes[-1], frame=i,
+                            img=sys_.last_pyr.levels[0].clone(),
+                            xy=feat.xy.clone(), valid=feat.valid.clone(),
+                            has_lm=has_lm, lm_pos=m.lm_pos[slot].clone()))
+    launches = _launches()
+    imp = _implied_launches(before, after)
+    _, est = sys_.frame_trajectory()
+    res = _check_run("place recognition run", sys_, after, est, poses,
+                     launches, _expect(**imp["level0_on_level"]))
+    res.update(launches=launches, frames=n,
+               median_ms_per_frame=float(np.median(ms)))
+    print("  run_step: " + json.dumps(res))
+    K = len(kfs)
+    # the vocabulary's training set: the keyframes of the first half lap
+    first = [k for k, kf in enumerate(kfs)
+             if kf["frame"] < LOOP_LAP_FRAMES // 2]
+    if K < LOOP_MIN_GAP_KF + 4 or len(first) < 4 \
+            or kfs[-1]["frame"] < LOOP_LAP_FRAMES:
+        raise AssertionError(f"place recognition: {K} keyframes, "
+                             f"{len(first)} in the first half lap, the last "
+                             f"at frame {kfs[-1]['frame']}")
+    times = {}
+
+    def timed(name, fn, reps=5, warmup=1):
+        times[name] = _time_ms(fn, reps=reps, warmup=warmup)
+
+    # --- descriptors of every keyframe
+    screen = float(s.min_th_fast) if s.loop_screen_fast else 0.0
+    pattern = loopclosing.pattern_from_settings(s)
+
+    def describe(kf):
+        return loopclosing.loop_describe(kf["img"], kf["xy"], kf["valid"],
+                                         S, s.scale_factor,
+                                         screen_threshold=screen,
+                                         pattern=pattern)
+
+    for kf in kfs:
+        kf["desc"], kf["dval"] = describe(kf)
+    timed("loop_describe (1 keyframe)", lambda: describe(kfs[-1]))
+    n_rows = [int(kf["dval"].sum()) for kf in kfs]
+    print(f"  {K} keyframes ({len(first)} in the first half lap), {F} "
+          f"features x "
+          f"{S} octaves = {F * S} descriptor rows each, valid rows "
+          f"{min(n_rows)}-{max(n_rows)}")
+
+    # --- vocabulary (host) and database
+    docs = [interop.descriptors_numpy(kfs[k]["desc"][kfs[k]["dval"]])
+            for k in first]
+    t0 = time.perf_counter()
+    vocab_cpu = bow.train(docs, k=s.vocab_k, levels=s.vocab_levels)
+    train_s = time.perf_counter() - t0
+    vocab = vocab_cpu.to(dev)
+    print(f"  bow.train on the host: {sum(len(d) for d in docs)} descriptors "
+          f"of {len(docs)} keyframes, k={s.vocab_k} L={s.vocab_levels} -> "
+          f"{vocab.n_words} words in {train_s:.2f} s")
+    Lv = s.vocab_levels
+    db = torch.stack([bow.transform(vocab, kf["desc"], kf["dval"], Lv)
+                      for kf in kfs])
+    q = K - 1
+    kq = kfs[q]
+    timed("bow.words_of", lambda: bow.words_of(vocab, kq["desc"], kq["dval"],
+                                               Lv))
+    timed("bow.transform", lambda: bow.transform(vocab, kq["desc"],
+                                                 kq["dval"], Lv))
+
+    # --- retrieval
+    cand_ok = torch.arange(K, device=dev) <= q - LOOP_MIN_GAP_KF
+    scores = bow.score_l1_database(db[q], db, cand_ok)
+    timed("bow.score_l1_database", lambda: bow.score_l1_database(
+        db[q], db, cand_ok))
+    c = int(torch.argmax(scores))
+    kc = kfs[c]
+    dist = float(np.linalg.norm(poses[kq["frame"], :, 3]
+                                - poses[kc["frame"], :, 3]))
+    print(f"  query keyframe {q} (frame {kq['frame']}): best candidate "
+          f"{c} (frame {kc['frame']}) score {float(scores[c]):.4f}, true "
+          f"distance {dist:.3f} m; scores "
+          + json.dumps([round(float(v), 4) for v in scores.cpu()]))
+    if kc["frame"] >= LOOP_LAP_FRAMES // 2 or not dist <= LOOP_MAX_DIST_M:
+        raise AssertionError(f"place recognition: candidate {c} (frame "
+                             f"{kc['frame']}, {dist} m away) is not a "
+                             "keyframe of the first pass near the query")
+
+    # --- match and PnP
+    best_j, hd, ok = _match_multiscale(kq["desc"], kq["dval"], kc["desc"],
+                                       kc["dval"], F, S)
+    timed("multi-scale Hamming match", lambda: _match_multiscale(
+        kq["desc"], kq["dval"], kc["desc"], kc["dval"], F, S))
+    ok = ok & kc["has_lm"][best_j]
+    p_w = kc["lm_pos"][best_j].contiguous()
+    gen = torch.Generator(device=dev).manual_seed(6)
+    idx = pnp.sample_indices(ok, 128, 6, gen)
+    K4 = (cam.fx, cam.fy, cam.cx, cam.cy)
+    r_pnp = pnp.pnp_ransac(p_w, kq["xy"], ok, *K4, sample_idx=idx)
+    timed("pnp.pnp_ransac", lambda: pnp.pnp_ransac(p_w, kq["xy"], ok, *K4,
+                                                   sample_idx=idx), reps=3)
+    T_true = torch.from_numpy(se3.inverse_np(
+        poses[kq["frame"]].astype(np.float32)))
+    e_t, e_r = _twist_err(r_pnp.T_cw, T_true)
+    print(f"  match: {int(ok.sum())} mutual matches with a landmark (median "
+          f"Hamming {float(hd[ok].float().median()):.0f}); pnp_ransac ok "
+          f"{bool(r_pnp.ok)}, {int(r_pnp.n_inliers)} inliers, T_cw off the "
+          f"ground truth by {e_t:.4f} m, {e_r:.5f} rad")
+    if not bool(r_pnp.ok) or not (e_t <= LOOP_PNP_TOL_M
+                                  and e_r <= LOOP_PNP_TOL_RAD):
+        raise AssertionError("place recognition: pnp_ransac did not recover "
+                             f"the pose ({e_t} m, {e_r} rad)")
+
+    # --- pose graphs: the keyframes' with drifted odometry + the loop edge
+    gid_ix = {kf["rec"]["gid"]: k for k, kf in enumerate(kfs)}
+    T_kf = np.stack([kf["rec"]["T_cw"] for kf in kfs]).astype(np.float32)
+    centres = np.stack([poses[kf["frame"], :, 3] for kf in kfs])
+    edges = [(gid_ix[g], gid_ix[gp], Z) for gp, g, Z in sys_.kf_rel_edges]
+    rng = np.random.default_rng(8)
+    noise = rng.normal(0, PGO_DRIFT, (len(edges), 6)).astype(np.float32)
+    noise[:, 3:] *= 0.3
+    Zn = se3.compose(se3.exp(torch.from_numpy(noise)), torch.from_numpy(
+        np.stack([Z for _, _, Z in edges]).astype(np.float32))).numpy()
+    drifted = T_kf.copy()
+    for (i, j, _), Z in zip(edges, Zn):     # in keyframe order
+        drifted[i] = se3.compose_np(Z, drifted[j])
+    Z_loop = se3.compose_np(r_pnp.T_cw.cpu().numpy(), se3.inverse_np(T_kf[c]))
+    prob_kf = pgo.PGOProblem(
+        poses=torch.from_numpy(drifted),
+        pose_valid=torch.ones(K, dtype=torch.bool),
+        pose_fixed=torch.arange(K) == 0,
+        edge_i=torch.tensor([i for i, _, _ in edges] + [q],
+                            dtype=torch.int32),
+        edge_j=torch.tensor([j for _, j, _ in edges] + [c],
+                            dtype=torch.int32),
+        edge_Z=torch.from_numpy(np.concatenate([Zn, Z_loop[None]])),
+        edge_valid=torch.ones(len(edges) + 1, dtype=torch.bool),
+        edge_weight=torch.ones(len(edges) + 1, dtype=torch.float32))
+    prob_cg, centres_cg = _circle_graph(PGO_CG_POSES, 640, 0.01, seed=9)
+    if not K <= pgo.DENSE_MAX_POSES < prob_cg.poses.shape[0]:
+        raise AssertionError("pose graphs: one dense, one CG")
+    pgo_out = {}
+    for name, prob, cen, iters, tol in (
+            ("dense", prob_kf, centres, 20, PGO_DENSE_TOL),
+            ("cg", prob_cg, centres_cg, 15, PGO_CG_TOL)):
+        nv = len(cen)
+        prob_d = pgo.PGOProblem(*[t.to(dev) for t in prob])
+        out, times[f"pgo.optimize ({name}, {prob.poses.shape[0]} poses, "
+                   f"{iters} LM steps)"] = _timed_once(
+            lambda: pgo.optimize(prob_d, iters=iters))
+        t0 = time.perf_counter()
+        out_cpu = pgo.optimize(prob, iters=iters)
+        cpu_s = time.perf_counter() - t0
+        e0 = _centre_err(prob.poses[:nv], cen)
+        e1 = _centre_err(out.cpu()[:nv], cen)
+        d_cpu = float((out.cpu() - out_cpu).abs().max())
+        # the end point: the query keyframe; the circle's, its mean error
+        # (tests/test_pgo.py's `ate`)
+        b, a = (e0[q], e1[q]) if name == "dense" else (e0.mean(), e1.mean())
+        pgo_out[name] = dict(poses=int(prob.poses.shape[0]), before_m=float(b),
+                             after_m=float(a), mean_before_m=float(e0.mean()),
+                             mean_after_m=float(e1.mean()),
+                             card_vs_cpu_max=d_cpu, cpu_s=cpu_s)
+        print(f"  pgo.optimize [{name}]: " + json.dumps(pgo_out[name]))
+        if not bool(torch.isfinite(out).all()) or not a < PGO_MAX_ERR_SHARE * b:
+            raise AssertionError(f"pgo [{name}]: error {b} m -> {a} m, not "
+                                 f"under {PGO_MAX_ERR_SHARE} of it")
+        if not d_cpu <= tol:
+            raise AssertionError(f"pgo [{name}]: card and CPU differ by "
+                                 f"{d_cpu} > {tol}")
+
+    # --- card against the port's own CPU result on the same inputs
+    xy_c, val_c = kq["xy"].cpu(), kq["valid"].cpu()
+    dq_c, dvq_c = kq["desc"].cpu(), kq["dval"].cpu()
+    dc_c, dvc_c = kc["desc"].cpu(), kc["dval"].cpu()
+    exact = {}
+    exact["words_of"] = torch.equal(
+        bow.words_of(vocab, kq["desc"], kq["dval"], Lv).cpu(),
+        bow.words_of(vocab_cpu, dq_c, dvq_c, Lv))
+    m_cpu = _match_multiscale(dq_c, dvq_c, dc_c, dvc_c, F, S)
+    exact["hamming match"] = all(torch.equal(a.cpu(), b) for a, b in zip(
+        _match_multiscale(kq["desc"], kq["dval"], kc["desc"], kc["dval"],
+                          F, S), m_cpu))
+    exact["hamming_distance"] = torch.equal(
+        orb.hamming_distance(kq["desc"][:, None, :],
+                             kc["desc"][None, :F, :]).cpu(),
+        orb.hamming_distance(dq_c[:, None, :], dc_c[None, :F, :]))
+    lvl1 = pyramid.build_orb_pyramid(kq["img"], 2, s.scale_factor)[1]
+    xy1 = kq["xy"] / s.scale_factor
+    exact["fast_check_sparse"] = torch.equal(
+        fast.fast_check_sparse(lvl1, xy1, screen or 7.0).cpu(),
+        fast.fast_check_sparse(lvl1.cpu(), xy1.cpu(), screen or 7.0))
+    blurred = pyramid.blur(kq["img"], sigma=2.0, radius=3)
+    ang = orb.ic_angle_integral(blurred, kq["xy"])
+    timed("orb.ic_angle_integral", lambda: orb.ic_angle_integral(blurred,
+                                                                kq["xy"]))
+    timed("orb.compute_descriptors_pool",
+          lambda: orb.compute_descriptors_pool(blurred, kq["xy"], ang))
+    timed("fast.fast_check_sparse",
+          lambda: fast.fast_check_sparse(lvl1, xy1, 7.0))
+    ang_c = ang.cpu()                   # one angle array for both sides
+    for name, fn in (("descriptors (pool)", orb.compute_descriptors_pool),
+                     ("descriptors (classic)", orb.compute_descriptors)):
+        exact[name] = torch.equal(fn(blurred, kq["xy"], ang).cpu(),
+                                  fn(blurred.cpu(), xy_c, ang_c))
+    inb = sampling.in_bounds(xy_c, *blurred.shape, border=22.0) & val_c
+    d_ang = _ang_diff(ang, orb.ic_angle_integral(blurred.cpu(), xy_c))[inb]
+    d_ref = _ang_diff(ang, orb.ic_angle(blurred.cpu(), xy_c))[inb]
+    d_tr = float((bow.transform(vocab, kq["desc"], kq["dval"], Lv).cpu()
+                  - bow.transform(vocab_cpu, dq_c, dvq_c, Lv)).abs().max())
+    r_cpu = pnp.pnp_ransac(p_w.cpu(), xy_c, ok.cpu(), *K4,
+                           sample_idx=idx.cpu())
+    e_pnp = max(_twist_err(r_pnp.T_cw, r_cpu.T_cw))
+    close = dict(
+        ic_angle_integral_median=float(d_ang.median()),
+        ic_angle_integral_share_within=float(
+            (d_ang < INTEGRAL_WIDE_TOL).float().mean()),
+        ic_angle_integral_max=float(d_ang.max()),
+        ic_angle_integral_vs_ic_angle_median=float(d_ref.median()),
+        transform_max=d_tr, pnp_pose=e_pnp,
+        pnp_inliers_equal=bool(torch.equal(r_pnp.inlier.cpu(), r_cpu.inlier)),
+        pnp_ok_equal=bool(r_pnp.ok) == bool(r_cpu.ok),
+        pgo_dense_max=pgo_out["dense"]["card_vs_cpu_max"],
+        pgo_cg_max=pgo_out["cg"]["card_vs_cpu_max"])
+    print("  card == CPU: " + json.dumps(exact))
+    print("  card vs CPU: " + json.dumps(close))
+    if not all(exact.values()):
+        raise AssertionError(f"card and CPU differ: {exact}")
+    if not (close["ic_angle_integral_median"] < INTEGRAL_MEDIAN_TOL
+            and close["ic_angle_integral_share_within"]
+            >= INTEGRAL_WIDE_MIN_SHARE
+            and close["ic_angle_integral_vs_ic_angle_median"]
+            < INTEGRAL_MEDIAN_TOL
+            and d_tr <= TRANSFORM_TOL and e_pnp <= PNP_POSE_TOL
+            and close["pnp_inliers_equal"] and close["pnp_ok_equal"]):
+        raise AssertionError(f"card and CPU too far apart: {close}")
+    print(f"  op times (CUDA events, {card}):")
+    for name, t in times.items():
+        print(f"    {name}: {t:.4f} ms")
+    res.update(n_keyframes_trained_on=len(first), candidate=c,
+               candidate_distance_m=dist, pnp_err_m=e_t, pnp_err_rad=e_r,
+               train_s=train_s, op_ms=times, pgo=pgo_out)
+    return res
+
+
 def main() -> None:
     t_start = time.perf_counter()
-    phase_device()
+    card = phase_device()
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     phase_build()
@@ -911,6 +1384,7 @@ def main() -> None:
         step, frames = phase_run_step(kitti, dev)
         frames["seconds"] = time.perf_counter() - t0
         chunk = phase_chunks(robotcar, dev)
+        place = phase_place_recognition(kitti, dev, card)
         flavours = phase_flavours(kitti, dev, frames, t_start)
     table = []
     for name, meta in KERNELS.items():
@@ -921,6 +1395,7 @@ def main() -> None:
         table.append(dict(
             name=name, route="cuda", **meta,
             launches=(step["launches"][name] + chunk["launches"][name]
+                      + place["launches"][name]
                       + sum(f["launches"][name] for f in flavours.values())),
             max_abs_err=max(r["max_abs_err"] for r in mine),
             ms=big["ms"], plain_ms=big["plain_ms"], bound_ms=big["bound_ms"],

@@ -16,6 +16,10 @@ Idiom:
 - Each Pallas kernel of the JAX package becomes a hand-written CUDA kernel
   (`csrc/`), bound through a ctypes wrapper that also holds the kernel's
   plain torch version (`ops/lk_cuda.py`).
+- The loop-closing ops are plain tensor code, as they are in the JAX
+  package: `ops/orb.py` (descriptors as int32 bits, popcount Hamming),
+  `ops/bow.py` (vocabulary tree), `ops/pnp.py` (batched RANSAC),
+  `ops/pgo.py` (pose graph), and `loopclosing.py::loop_describe`.
 
 Conventions (as `ssvio_tpu/__init__.py` documents them):
 - Pose `T_cw`: maps world points into the camera frame; a [3, 4] float32

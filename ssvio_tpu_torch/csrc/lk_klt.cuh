@@ -19,15 +19,14 @@
 // is 512 warps, about 4 an SM, and each iteration is one dependent chain:
 // sample the window, two 5-step shuffle reductions, a 2x2 solve, the
 // convergence test. The level lasts as long as its slowest keypoint's
-// chain, so what counts is the time of one iteration. Kernels #1, #3, #4
-// and #5 (RegionSampler, TensorCoreSampler) stage a search region of the
-// `cur` plane in the warp's shared memory once a level, with cp.async
-// (Region), and sample every later window that lies inside it from there,
-// in registers, with no barrier in the loop; a window that leaves the
-// region, and the three template windows, read L2 as kernel #2
-// (GlobalSampler) reads every window. Both paths read the plane's own
-// values and blend them with one pinned expression, so the function does
-// not depend on where a window was read.
+// chain, so what counts is the time of one iteration. Every kernel
+// (RegionSampler, TensorCoreSampler) stages a search region of the `cur`
+// plane in the warp's shared memory once a level, with cp.async (Region),
+// and samples every later window that lies inside it from there, in
+// registers, with no barrier in the loop; a window that leaves the region,
+// and the three template windows, read L2 (L2Sampler). Both paths read the
+// plane's own values and blend them with one pinned expression, so the
+// function does not depend on where a window was read.
 // TMA is not the tool for that copy: it needs a tensor map per plane,
 // built on the host (cuTensorMapEncodeTiled), to move one 2-10 KB tile at
 // an arbitrary origin per warp, which 32 lanes of cp.async do as well.
@@ -55,10 +54,9 @@
 // warp with equal arguments, leaves in out[k] the sample at integer
 // top-left (ix, iy) plus fraction (fx, fy) of the window pixel pixel(k)
 // names, and 0 where that pixel lies outside the window (zeros add nothing
-// to the sums). A sampler with kStaged also has stage(plane, iy, ix), which
-// copies the region around that window, and search(...), window() from the
-// region where it holds the window, counting in n_outside those it does
-// not. The float32 samplers are one template over a blend policy
+// to the sums). It also has stage(plane, iy, ix), which copies the region
+// around that window, and search(...), window() from the region where it
+// holds the window, counting in n_outside those it does not. The float32 samplers are one template over a blend policy
 // (FourCornerBlend: kernels #1-#3; SeparableBlend: #4, #5 mm_f32) and the
 // pixels a lane: 4 (win <= 11, the path's class), 8 (<= 16), 18 (<= 24);
 // #5's bf16 TensorCoreSampler is in lk_level_mm.cu.
@@ -189,12 +187,10 @@ struct LanePixels {
 
 // Every window from L2: each lane reads the four corners of its pixels
 // from global memory (the planes stay resident in L2) and blends them with
-// Blend. Kernel #2's sampler (GlobalSampler), and the template windows and
-// out-of-region windows of RegionSampler.
+// Blend: the template windows and out-of-region windows of RegionSampler.
 template <int kPix_, class Blend>
 struct L2Sampler : LanePixels<kPix_> {
   using Elem = float;
-  static constexpr bool kStaged = false;
   static constexpr int kMaxWindow = max_window(kPix_);
   static constexpr int kSmemBytes = 0;
   int H, W;
@@ -214,10 +210,6 @@ struct L2Sampler : LanePixels<kPix_> {
     }
   }
 };
-
-// Kernel #2: kernel #1's blend, every window from L2.
-template <int kPix>
-using GlobalSampler = L2Sampler<kPix, FourCornerBlend>;
 
 // cp.async of one 16- or 4-byte unit from global to shared memory; the
 // bytes past `src_bytes` (0..kBytes) are zero-filled.
@@ -318,7 +310,7 @@ struct Region {
   }
 };
 
-// Kernels #1 and #3 (FourCornerBlend), #4 and #5 mm_f32 (SeparableBlend):
+// Kernels #1-#3 (FourCornerBlend), #4 and #5 mm_f32 (SeparableBlend):
 // the template windows read L2; each warp stages a region of `cur` around
 // its first search window once a level and blends every search window
 // inside it from there, in registers, L2 outside it. The region is 32 x 36
@@ -336,7 +328,6 @@ template <int kPix_, class Blend>
 struct RegionSampler : L2Sampler<kPix_, Blend> {
   using Reg = std::conditional_t<(kPix_ > 8), Region<float, 48, 52>,
                                  Region<float, 32, 36>>;
-  static constexpr bool kStaged = true;
   static constexpr int kSmemBytes = Reg::kBytes;
   static_assert(max_window(kPix_) < Reg::kRows, "region rows");
   int lane, w1;
@@ -434,19 +425,14 @@ __device__ __forceinline__ int klt_solve(
   float bx = clip_floor(lx, fc.lim_x);
   float by = clip_floor(ly, fc.lim_y);
   int ix = fc.ox + (int)bx, iy = fc.oy + (int)by;
-  if constexpr (Sampler::kStaged) {
-    if (!frozen) smp.stage(cur, iy, ix);
-  }
+  if (!frozen) smp.stage(cur, iy, ix);
   int n_it = 0;
   for (int it = 0; it < iters; ++it) {
     if (frozen) break;
     ++n_it;
     const float fx = lx - bx, fy = ly - by;
     float I[kPix];
-    if constexpr (Sampler::kStaged)
-      smp.search(cur, iy, ix, fx, fy, I);
-    else
-      smp.window(cur, iy, ix, fx, fy, I);
+    smp.search(cur, iy, ix, fx, fy, I);
     float sbx = 0.f, sby = 0.f;
 #pragma unroll
     for (int k = 0; k < kPix; ++k) {
@@ -473,8 +459,8 @@ __device__ __forceinline__ int klt_solve(
 // Kernel #1's function (the JAX package's VMEM kernels): the window's
 // top-left stays in [0, Wb - win - 2] x [0, Hb - win - 2] of the padded
 // level (Hb, Wb); reads at or beyond the true dims (H, W) return 0. One
-// warp per keypoint, kWarps a block. With `stats` (may be null) a staged
-// sampler's level adds, per keypoint, the search windows read outside its
+// warp per keypoint, kWarps a block. With `stats` (may be null) the level
+// adds, per keypoint, the search windows read outside its
 // region to stats[0] and its iterations to stats[1], and raises stats[2]
 // to the most iterations of any keypoint.
 template <class Sampler, int kWarps>
@@ -509,12 +495,10 @@ level_kernel(const typename Sampler::Elem* __restrict__ prev,
     pts_out[2 * kp] = lx + r;
     pts_out[2 * kp + 1] = ly + r;
     flag[kp] = good ? 1 : 0;
-    if constexpr (Sampler::kStaged) {
-      if (stats != nullptr) {
-        atomicAdd(stats, smp.n_outside);
-        atomicAdd(stats + 1, n_it);
-        atomicMax(stats + 2, n_it);
-      }
+    if (stats != nullptr) {
+      atomicAdd(stats, smp.n_outside);
+      atomicAdd(stats + 1, n_it);
+      atomicMax(stats + 2, n_it);
     }
   }
 }

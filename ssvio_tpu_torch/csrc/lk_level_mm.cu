@@ -91,7 +91,6 @@ template <int kK>
 struct TensorCoreSampler {
   using Elem = __nv_bfloat16;
   using Reg = Region<bits16, 32, 40>;
-  static constexpr bool kStaged = true;
   static constexpr int kPix = 8;
   static constexpr int kMaxWindow = kK == 1 ? 15 : 16;
   static constexpr int kNR = kK == 1 ? 2 : 3;     // n8 tiles of R (win + 1)

@@ -19,6 +19,8 @@ from ssvio_tpu_torch import config
 from ssvio_tpu_torch.engine import EngineCarry, FrameOut
 from ssvio_tpu_torch.frontend import FeatState, Pyr
 from ssvio_tpu_torch.map import MapState
+from ssvio_tpu_torch.ops.bow import Vocabulary
+from ssvio_tpu_torch.ops.pgo import PGOProblem
 
 
 def _field(src: Any, name: str):
@@ -85,3 +87,28 @@ def settings(src: Any) -> config.Settings:
             v = config.CameraConfig(**dataclasses.asdict(v))
         setattr(out, f.name, v)
     return out
+
+
+def descriptors(desc_u32: Any, device=None) -> torch.Tensor:
+    """Packed descriptors [..., 8] uint32 (the JAX package's) as the
+    port's int32 tensor holding the same bits."""
+    a = np.ascontiguousarray(np.asarray(desc_u32), np.uint32)
+    return torch.as_tensor(a.view(np.int32).copy(), device=device)
+
+
+def descriptors_numpy(desc: torch.Tensor) -> np.ndarray:
+    """The port's int32 descriptors as the uint32 words they stand for."""
+    return np.ascontiguousarray(desc.detach().cpu().numpy()).view(np.uint32)
+
+
+def vocabulary(src: Any, device=None) -> Vocabulary:
+    """A vocabulary tree (JAX `bow.Vocabulary`) as the port's, its uint32
+    node descriptors carried as int32 bits."""
+    return Vocabulary(
+        descriptors(_field(src, "node_desc"), device),
+        *[torch.as_tensor(np.array(np.asarray(_field(src, f))), device=device)
+          for f in Vocabulary._fields[1:]])
+
+
+def pgo_problem(src: Any, device=None) -> PGOProblem:
+    return to_torch(src, PGOProblem, device)

@@ -137,6 +137,59 @@ def _lm_loop_6dof(T0, p_w, uv, weight, fx, fy, cx, cy, iters: int):
     return T
 
 
+def _pose_only_normal_eq_batched(T, p_w, uv, w, fx, fy, cx, cy):
+    """_pose_only_normal_eq over a batch of poses: T [B, 3, 4], p_w
+    [B, K, 3], uv [B, K, 2], w [B, K] -> H [B, 6, 6], b [B, 6], F [B]."""
+    r, p_cl, z_ok = reproject_residual(T[:, None], p_w, uv, fx, fy, cx, cy)
+    w = w * z_ok.to(r.dtype)
+    chi2 = torch.sum(r * r, dim=-1)
+    hw = w * huber_weight(chi2)
+    J, _ = reproject_jacobians(p_cl, se3.rotation(T)[:, None], fx, fy)
+    H = torch.einsum("bnki,bnkj,bn->bij", J, J, hw)
+    b = -torch.einsum("bnki,bnk,bn->bi", J, r, hw)
+    F = torch.sum(hw * chi2, dim=-1)
+    return H, b, F
+
+
+def _lm_loop_6dof_batched(T0, p_w, uv, weight, fx, fy, cx, cy, iters: int):
+    """_lm_loop_6dof on B poses at once, each on its own points (T0
+    [B, 3, 4], p_w [B, K, 3], uv [B, K, 2], weight [B, K]): exactly
+    `iters` steps with no host read. A pose whose step has stalled is
+    frozen with `torch.where`, which is the state a batched `while_loop`
+    leaves (it runs until every pose's condition is false and keeps the
+    carry of those that stopped earlier)."""
+    H, b, F = _pose_only_normal_eq_batched(T0, p_w, uv, weight,
+                                           fx, fy, cx, cy)
+    lam = 1e-5 * torch.amax(torch.diagonal(H, dim1=-2, dim2=-1), dim=-1)
+    nu = torch.full_like(lam, 2.0)
+    stop = torch.zeros_like(lam, dtype=torch.bool)
+    T = T0
+    eye6 = torch.eye(6, dtype=H.dtype, device=H.device)
+    for _ in range(iters):
+        dx = _solve(H + lam[:, None, None] * eye6, b[..., None])[..., 0]
+        T_new = se3.compose(se3.exp(dx), T)
+        H_new, b_new, F_new = _pose_only_normal_eq_batched(
+            T_new, p_w, uv, weight, fx, fy, cx, cy)
+        pred = 0.5 * torch.sum(dx * (lam[:, None] * dx + b), dim=-1)
+        rho = (F - F_new) / torch.clamp(pred, min=1e-12)
+        finite = torch.all(torch.isfinite(dx), dim=-1)
+        accept = (rho > 0) & finite & ~stop
+        live = ~stop
+        T = torch.where(accept[:, None, None], T_new, T)
+        H = torch.where(accept[:, None, None], H_new, H)
+        b = torch.where(accept[:, None], b_new, b)
+        F = torch.where(accept, F_new, F)
+        lam_next = torch.where(
+            accept,
+            lam * torch.clamp(1.0 - (2.0 * rho - 1.0) ** 3, min=1.0 / 3.0),
+            lam * nu)
+        nu_next = torch.where(accept, torch.full_like(nu, 2.0), nu * 2.0)
+        lam = torch.where(live, lam_next, lam)
+        nu = torch.where(live, nu_next, nu)
+        stop = stop | ((torch.amax(torch.abs(dx), dim=-1) < 1e-7) & finite)
+    return T
+
+
 def pose_only_optimize(T_init: torch.Tensor, p_w: torch.Tensor,
                        uv: torch.Tensor, valid: torch.Tensor, fx, fy, cx, cy,
                        rounds: int = 4, iters: int = 10) -> PoseOnlyResult:

@@ -84,6 +84,27 @@ def fast_score_maps(img: torch.Tensor, thresholds) -> list:
     return out
 
 
+def fast_check_sparse(img: torch.Tensor, xy: torch.Tensor,
+                      threshold: float) -> torch.Tensor:
+    """Per-keypoint FAST-9 ring test at given (sub)pixel positions, the
+    sparse form of the dense detector's test (the loop ladder's per-octave
+    re-screen): rounds xy [N, 2] to pixels, gathers the 16-point ring and
+    the centre, and runs the same bitmask contiguous-arc test. Points
+    within 3 px of the border fail. Returns [N] bool."""
+    h, w = img.shape
+    ix = torch.round(xy[..., 0]).long()
+    iy = torch.round(xy[..., 1]).long()
+    inb = (ix >= 3) & (ix < w - 3) & (iy >= 3) & (iy < h - 3)
+    ixc = torch.clamp(ix, 3, w - 4)
+    iyc = torch.clamp(iy, 3, h - 4)
+    center = img[iyc, ixc]                                   # [N]
+    ring = torch.stack([img[iyc + int(dy), ixc + int(dx)]
+                        for dy, dx in RING_OFFSETS])         # [16, N]
+    t = float(threshold)
+    return inb & (_arc_mask(ring > (center + t)[None])
+                  | _arc_mask(ring < (center - t)[None]))
+
+
 def nms3x3(score: torch.Tensor) -> torch.Tensor:
     """Keep scores that are >= every neighbor of their 3x3 neighborhood."""
     neigh = torch.stack([_shift2d(score, dy, dx)

@@ -19,19 +19,26 @@ Positions come in and go out in patch coordinates, as the TPU kernel's do;
 as `ssvio_tpu/ops/lk.py:174-212` does.
 
 What bounds it on the card: as kernel #1, latency. The TPU kernel copies
-four patches per keypoint into VMEM; the CUDA kernel copies nothing and
-reads the planes at origin + local coordinate (the four level-0 planes at
-1280x960, 19.7 MB, stay in the 50 MB L2), with one warp per keypoint, T, Gx
-and Gy in registers (4 pixels a lane at win <= 11, 8 at <= 16, 18 at
-<= 24, the largest window the JAX kernel's 32-row slab holds) and
-warp-uniform `__shfl_xor_sync` sums (the solve in `csrc/lk_klt.cuh`,
-shared with kernel #1, and kernel #1's pinned blend). Staging the search
-patch in shared memory, as kernel #1 stages a region, TMA and batching
-levels are later work.
+four patches per keypoint into VMEM; the CUDA kernel works in plane
+coordinates, origin + local (the four level-0 planes at 1280x960, 19.7 MB,
+stay in the 50 MB L2), with one warp per keypoint, T, Gx and Gy in
+registers (4 pixels a lane at win <= 11, 8 at <= 16, 18 at <= 24, the
+largest window the JAX kernel's 32-row slab holds) and warp-uniform
+`__shfl_xor_sync` sums (the solve in `csrc/lk_klt.cuh`, shared with kernel
+#1). Each warp copies kernel #1's region of the current plane around its
+first search window into its own shared memory once a level (cp.async;
+32 x 36 floats, 48 x 52 above win 16) and blends every later search window
+inside it from there with kernel #1's pinned blend; the template windows,
+and a search window that leaves the region, read L2. The values do not
+depend on where a window was read and equal the first, all-L2 design's bit
+for bit.
 
 `lk_patch` launches the kernel for CUDA tensors (or raises) and takes the
 plain version `lk_patch_ref` only for CPU tensors. `LAUNCHES` counts kernel
-launches; nothing else increments it.
+launches; nothing else increments it. With `stats`, an int32 [3] CUDA
+tensor, the kernel adds to it the search windows read outside the staged
+region and the keypoint-iterations, and raises its third entry to the most
+iterations of any keypoint (chip_smoke.py; the path passes none).
 """
 
 from __future__ import annotations
@@ -60,6 +67,7 @@ def _library():
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
                        + [ctypes.c_void_p] * 7
                        + [ctypes.c_int] * 5 + [ctypes.c_float] * 2
+                       + [ctypes.c_void_p]                # stats
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _lib = lib
@@ -72,6 +80,7 @@ def lk_patch(img_prev: torch.Tensor, gx: torch.Tensor, gy: torch.Tensor,
              frozen0: torch.Tensor, *, win: int, pty: int, pcy: int,
              iters: int, eps: float, min_eig: float,
              padded_hw: Tuple[int, int],
+             stats: Optional[torch.Tensor] = None,
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """KLT level, `lk_pallas.lk_level_pallas` semantics.
 
@@ -83,13 +92,16 @@ def lk_patch(img_prev: torch.Tensor, gx: torch.Tensor, gy: torch.Tensor,
     good_flag [N, 1] int32).
 
     CUDA tensors launch the kernel or raise; CPU tensors take lk_patch_ref.
-    Either raises for win > 24, the kernel's limit.
+    Either raises for win > 24, the kernel's limit. `stats`: see the module
+    note (CUDA only).
     """
     global LAUNCHES
     check_window("lk_patch", win)
     kw = dict(win=win, pty=pty, pcy=pcy, iters=iters, eps=eps,
               min_eig=min_eig, padded_hw=padded_hw)
     if img_cur.device.type == "cpu":
+        if stats is not None:
+            raise ValueError("lk_patch: stats are the kernel's (CUDA)")
         return lk_patch_ref(img_prev, gx, gy, img_cur, tl_prev, tl_cur,
                             localT, local0, frozen0, **kw)
     if img_cur.device.type != "cuda":
@@ -116,6 +128,7 @@ def lk_patch(img_prev: torch.Tensor, gx: torch.Tensor, gy: torch.Tensor,
     flag = torch.empty((n, 1), dtype=torch.int32, device=dev)
     if n == 0:
         return local_out, flag
+    stats_p = lk_cuda.stats_ptr(stats, dev)
     lib = _library()
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.ssvio_lk_patch(
@@ -123,7 +136,7 @@ def lk_patch(img_prev: torch.Tensor, gx: torch.Tensor, gy: torch.Tensor,
         H, W, tl_prev.data_ptr(), tl_cur.data_ptr(), localT.data_ptr(),
         local0.data_ptr(), frozen0.data_ptr(), local_out.data_ptr(),
         flag.data_ptr(), n, win, pty, pcy, iters, float(eps), float(min_eig),
-        stream)
+        stats_p, stream)
     if rc != 0:
         raise RuntimeError(f"ssvio_lk_patch launch failed: cudaError {rc}")
     LAUNCHES += 1

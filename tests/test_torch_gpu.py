@@ -1,5 +1,5 @@
-"""The CUDA LK kernels and the chunk path on the card: tests that need a
-CUDA device and nvcc.
+"""The CUDA LK kernels, the chunk path and the loop-closing ops' integer
+results on the card: tests that need a CUDA device and nvcc.
 
 Every test here is marked `gpu` and skips, with its reason, where there is no
 CUDA device. This file imports neither jax nor the JAX package (the GPU's
@@ -32,8 +32,8 @@ import torch
 from ssvio_tpu_torch import frontend as fe
 from ssvio_tpu_torch.config import Settings
 from ssvio_tpu_torch.dataio import synthetic, synthetic_torch
-from ssvio_tpu_torch.ops import (_nvcc, lk, lk_cuda, lk_patch_cuda, pyramid,
-                                 sampling)
+from ssvio_tpu_torch.ops import (_nvcc, bow, lk, lk_cuda, lk_patch_cuda, orb,
+                                 pyramid, sampling)
 from ssvio_tpu_torch.ops import lk_variants_cuda as lkv
 from ssvio_tpu_torch.system import System
 
@@ -564,3 +564,124 @@ def test_search_leaves_the_staged_region_on_gpu(flavour, hw):
                          == out_r, dim=-1)
         assert int((live & conv).sum()) >= 15
         assert float(d[live & conv].max()) < POS_ATOL
+
+
+def _patch_level(dev, win, guess_off=(0.0, 0.0), seed=217):
+    """Kernel #2's inputs on one 192x256 level moved by (3.1, -2.2) px,
+    the guesses `guess_off` off the keypoints, 4 keypoints frozen."""
+    img, img2, pts = _scene(seed, (3.1, -2.2), stretch=True)
+    img_t = torch.from_numpy(img)
+    gx, gy = pyramid.sobel_gradients(img_t)
+    planes = [t.to(dev) for t in (img_t, gx, gy, torch.from_numpy(img2))]
+    p = torch.from_numpy(pts).to(dev)
+    guess = (p + torch.tensor(guess_off, device=dev)).contiguous()
+    valid = torch.ones(N, dtype=torch.bool, device=dev)
+    valid[:4] = False
+    args, kw, _ = lk.patch_inputs(H, W, p, guess, valid,
+                                  lk.LKParams(window=win))
+    return planes, args, kw
+
+
+@pytest.mark.parametrize("win", [11, 16, 24])
+def test_patch_kernel_stats_on_gpu(win):
+    """Kernel #2 with `stats` at each pixel class (4, 8 and 18 pixels a
+    lane; 18 KB and 39 KB of shared memory a block): the outputs are those
+    of a launch without stats bit for bit, the counts are consistent and
+    equal the plain version's, and a wrong stats tensor raises."""
+    dev = _device()
+    planes, args, kw = _patch_level(dev, win)
+    stats = torch.zeros(3, dtype=torch.int32, device=dev)
+    before = lk_patch_cuda.LAUNCHES
+    out_s, flag_s = lk_patch_cuda.lk_patch(*planes, *args, **kw, stats=stats)
+    out_k, flag_k = lk_patch_cuda.lk_patch(*planes, *args, **kw)
+    torch.cuda.synchronize()
+    assert lk_patch_cuda.LAUNCHES == before + 2
+    assert torch.equal(out_s, out_k) and torch.equal(flag_s, flag_k)
+    n_out, kp_iters, max_iters = (int(v) for v in stats.cpu())
+    assert 0 <= n_out <= kp_iters and 1 <= max_iters <= kw["iters"]
+    assert kp_iters >= N - 4                  # every live keypoint steps
+    counts = {}
+    out_r, flag_r = lk_patch_cuda.lk_patch_ref(*planes, *args, **kw,
+                                               counts=counts)
+    assert torch.equal(flag_k, flag_r)
+    # a track at the convergence edge may take one step more on one side
+    assert abs(int(counts["kp_iters"]) - kp_iters) <= N
+    conv = torch.all(out_r == lk_patch_cuda.lk_patch_ref(
+        *planes, *args, **dict(kw, iters=kw["iters"] - 1))[0], dim=-1)
+    check = (flag_k[:, 0] > 0) & conv
+    assert int(check.sum()) >= N // 2
+    assert torch.max(torch.abs(out_k[check] - out_r[check])).item() < POS_ATOL
+    for bad in (stats.long(), stats[:2], stats.cpu()):
+        with pytest.raises(ValueError):
+            lk_patch_cuda.lk_patch(*planes, *args, **kw, stats=bad)
+    assert lk_patch_cuda.LAUNCHES == before + 2
+
+
+def test_patch_search_leaves_the_staged_region_on_gpu():
+    """Kernel #2 with guesses 12 px off the true motion in x (its search
+    box has 0-127 px of slack there, 8-20 px in y), so that searches walk
+    past the region staged around their first window and read L2: windows
+    outside the region are reported (> 0), and the kernel is held against
+    lk_patch_ref as test_search_leaves_the_staged_region_on_gpu holds the
+    others."""
+    dev = _device()
+    planes, args, kw = _patch_level(dev, 11, guess_off=(3.1 + 12.0, -2.2))
+    frozen0 = args[4]
+    stats = torch.zeros(3, dtype=torch.int32, device=dev)
+    out_k, flag_k = lk_patch_cuda.lk_patch(*planes, *args, **kw, stats=stats)
+    torch.cuda.synchronize()
+    out_r, flag_r = lk_patch_cuda.lk_patch_ref(*planes, *args, **kw)
+    n_out, kp_iters, max_iters = (int(v) for v in stats.cpu())
+    assert n_out > 0 and kp_iters >= n_out and 1 <= max_iters <= kw["iters"]
+    assert torch.equal(flag_k, flag_r)
+    assert torch.isfinite(out_k).all()
+    live = (flag_k[:, 0] > 0) & (frozen0[:, 0] == 0)
+    assert int(live.sum()) >= 30
+    d = torch.max(torch.abs(out_k - out_r), dim=-1).values
+    assert float((d[live] <= POS_ATOL).float().mean()) \
+        >= PHASE_3B_AGREE_SHARE, d[live]
+    conv = torch.all(lk_patch_cuda.lk_patch_ref(
+        *planes, *args, **dict(kw, iters=kw["iters"] - 1))[0] == out_r,
+        dim=-1)
+    assert int((live & conv).sum()) >= 15
+    assert float(d[live & conv].max()) < POS_ATOL
+
+
+def test_popcount_and_words_of_card_against_cpu():
+    """The integer ops of loop closing give the CPU's results on the card,
+    exactly: the int32 popcount (sign bit, all ones, random words), a
+    [Na, Nb] Hamming matrix, a match with ties, and the vocabulary
+    descent."""
+    dev = _device()
+    rng = np.random.default_rng(219)
+    words = np.concatenate([
+        np.array([0xFFFFFFFF, 0x80000000, 0x7FFFFFFF, 0, 1], np.uint32),
+        rng.integers(0, 2 ** 32, 8187, dtype=np.uint32)]).view(np.int32)
+    x = torch.from_numpy(words)
+    want = np.unpackbits(words.view(np.uint8).reshape(-1, 4), axis=1).sum(1)
+    assert np.array_equal(orb._popcount32(x.to(dev)).cpu().numpy(), want)
+    a = torch.from_numpy(rng.integers(0, 2 ** 32, (300, 8), dtype=np.uint32)
+                         .view(np.int32))
+    b = torch.cat([a[:100], a[:100], torch.from_numpy(
+        rng.integers(0, 2 ** 32, (150, 8), dtype=np.uint32).view(np.int32))])
+    assert torch.equal(
+        orb.hamming_distance(a.to(dev)[:, None], b.to(dev)[None]).cpu(),
+        orb.hamming_distance(a[:, None], b[None]))
+    va, vb = torch.ones(300, dtype=torch.bool), torch.ones(350,
+                                                           dtype=torch.bool)
+    vb[::9] = False
+    for g, c in zip(orb.match_brute_force(a.to(dev), b.to(dev), va.to(dev),
+                                          vb.to(dev)),
+                    orb.match_brute_force(a, b, va, vb)):
+        assert torch.equal(g.cpu(), c)        # ties: the first index wins
+    docs = [rng.integers(0, 2 ** 32, (200, 8), dtype=np.uint32)
+            for _ in range(5)]
+    vocab = bow.train(docs, k=6, levels=3, seed=4)
+    valid = torch.from_numpy(rng.uniform(size=300) > 0.1)
+    w_cpu = bow.words_of(vocab, a, valid, 3)
+    w_gpu = bow.words_of(vocab.to(dev), a.to(dev), valid.to(dev), 3)
+    assert torch.equal(w_gpu.cpu(), w_cpu)
+    assert len(set(w_cpu.tolist())) > 20
+    torch.testing.assert_close(
+        bow.transform(vocab.to(dev), a.to(dev), valid.to(dev), 3).cpu(),
+        bow.transform(vocab, a, valid, 3), atol=1e-6, rtol=0)
