@@ -77,11 +77,35 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    (dense) and on a circle of PGO_CG_POSES poses (above DENSE_MAX_POSES:
    CG): both must cut the error to PGO_MAX_ERR_SHARE.
    Card against the port's own CPU result on the same inputs: equal for
-   words_of, the Hamming match, fast_check_sparse and the descriptors
-   from one angle array; within the CPU tests' tolerances for
-   ic_angle_integral, transform, pnp_ransac and pgo.optimize. Prints each
-   op's CUDA-event ms beside the card's name and power limit.
-8. prints the kernel table as one JSON line (with each kernel's bound,
+   words_of, the Hamming match (LoopClosing._match_impl), fast_check_sparse
+   and the descriptors from one angle array; within the CPU tests'
+   tolerances for ic_angle_integral, transform, pnp_ransac and
+   pgo.optimize. Prints each op's CUDA-event ms beside the card's name and
+   power limit.
+8. loop closing in the System at KITTI width (run before phase 6 too):
+   bench_loop_settings() (bench.py:51-69: the bench configuration with
+   loop closing on, database warm-up at 24 keyframes), the database
+   started at LOOP8_DB_ROWS rows so the run outgrows it. The JAX loop
+   bench's scene (bench.py:294-307): a 10 m circle of LOOP8_LAP frames,
+   seed 11, walls 24 m out, ceiling 8 m up, sensor noise 2.0, rendered on
+   the card; LOOP8_LAPS laps and a quarter lap, trimmed to chunks of
+   CHUNK (the bench drives 5 laps). Driven through the prefetcher and
+   pipelined dispatch_chunk / collect_chunk, then finish(), as
+   bench.py::_run_pass drives the JAX package: once with loop closing on,
+   once off on the same frames. Checks: no LOST frame, kernel #1's
+   launches as the statuses imply and every other kernel 0 (both runs),
+   the vocabulary trained, the database grown, at least one accepted
+   correction with fused landmarks, the keyframe end drift (gauge fixed on
+   the first quarter, bench.py:338-346) below the loop-off run's, the
+   keyframe ATE under ATE_MAX_M. Then relocalization through run_step on
+   the loop-on System: RELOC_BLANKS blank frames drive it LOST with no
+   relocalization, first-lap frame RELOC_FRAME relocalizes within
+   RELOC_TOL_M of the truth (in the System's gauge: the camera of the
+   frame it initialised at is its origin) and tracking resumes. Prints ms/frame both
+   ways, ingest ms per keyframe, ms per verification and per PGO run, the
+   events' ranges, ATE and end drift, beside the card's name and power
+   limit.
+9. prints the kernel table as one JSON line (with each kernel's bound,
    bound_ms: the plane pixels the level needs over the memory rate, or
    its operations over the peak rate, BOUND_*), then the result line.
 """
@@ -99,7 +123,8 @@ import torch
 
 from ssvio_tpu_torch import frontend as fe
 from ssvio_tpu_torch import interop, loopclosing
-from ssvio_tpu_torch.config import (Settings, bench_settings,
+from ssvio_tpu_torch.config import (Settings, bench_loop_settings,
+                                    bench_settings,
                                     robotcar_xb3_wide_settings)
 from ssvio_tpu_torch.dataio import synthetic, synthetic_torch
 from ssvio_tpu_torch.eval import ate
@@ -159,8 +184,7 @@ MM_WINDOW_ULPS = 2.0
 MM_STEP_TOL_PX = 1e-4
 FLAVOUR_FRAMES_CUT = 48     # phase 6 frames of the flavours other than mm
                             # when the script would pass SCRIPT_BUDGET_S,
-SCRIPT_BUDGET_S = 420.0     # which keeps it well inside its 1200 s limit
-                            # on a slow host (one H100: 288-351 s in all)
+SCRIPT_BUDGET_S = 600.0     # half its 1200 s limit (phase 8 is the largest)
 PLAIN_REPS = 5              # timed calls of a plain version (~30 ms each)
 # Phase 7: a circle of LOOP_RADIUS_M driven once in LOOP_LAP_FRAMES frames
 # (1.5 degrees and 0.26 m a frame, the turn eased in over LOOP_EASE_FRAMES)
@@ -186,6 +210,17 @@ INTEGRAL_MEDIAN_TOL, INTEGRAL_WIDE_TOL, INTEGRAL_WIDE_MIN_SHARE = \
 TRANSFORM_TOL = 1e-6
 PNP_POSE_TOL = 1e-3
 PGO_DENSE_TOL, PGO_CG_TOL = 1e-4, 1e-3
+# Phase 8: the JAX loop bench's scene (bench.py:294-307), cut to
+# LOOP8_LAPS laps and a quarter lap of LOOP8_LAP frames (the bench: 5)
+LOOP8_LAP = 288
+LOOP8_LAPS = 2
+LOOP8_RADIUS_M = 10.0
+LOOP8_WORLD = dict(seed=11, wall_x=24.0, ceiling_y=-8.0)
+LOOP8_NOISE = 2.0
+LOOP8_DB_ROWS = 16        # the database's rows at the start (it doubles)
+RELOC_BLANKS = 3          # tests/test_relocalization.py's
+RELOC_FRAME = 40          # a first-lap view
+RELOC_TOL_M = 0.5         # tests/test_relocalization.py's
 KERNELS = {
     "lk_level": dict(source="ssvio_tpu_torch/csrc/lk_level.cu",
                      replaces="ssvio_tpu/ops/lk_pallas.py:344"),
@@ -788,21 +823,24 @@ def _mm_tight(lv, out_r, check=True) -> dict:
 
 def _implied_launches(before, after):
     """Kernel launches that the statuses before and after each frame
-    imply: a stereo match (init attempt, steady keyframe) is 2 tracks x 4
-    levels, a tracked frame 2 tracks x 3 levels. Counts for a camera whose
-    level 0 stays on kernel #1 and for one whose level 0 takes kernel #2."""
+    imply: a stereo match (init attempt, steady keyframe, the keyframe of
+    a relocalization: a frame that entered LOST and left it) is 2 tracks x
+    4 levels, a tracked frame 2 tracks x 3 levels. Counts for a camera
+    whose level 0 stays on kernel #1 and for one whose level 0 takes
+    kernel #2."""
     n_init = sum(b == fe.INITING for b in before)
     tracked = [b in (fe.TRACKING_GOOD, fe.TRACKING_BAD) for b in before]
     n_track = sum(tracked)
     n_kf = sum(t and a == fe.TRACKING_BAD for t, a in zip(tracked, after))
+    n_reloc = sum(b == fe.LOST and a != fe.LOST
+                  for b, a in zip(before, after))
+    n_stereo = n_init + n_kf + n_reloc
     return dict(n_init_attempts=n_init, n_tracked=n_track,
-                n_steady_keyframes=n_kf,
-                level0_on_level=dict(lk_level=8 * n_init + 6 * n_track
-                                     + 8 * n_kf, lk_patch=0),
-                level0_on_patch=dict(lk_level=6 * n_init + 4 * n_track
-                                     + 6 * n_kf,
-                                     lk_patch=2 * n_init + 2 * n_track
-                                     + 2 * n_kf))
+                n_steady_keyframes=n_kf, n_relocalized=n_reloc,
+                level0_on_level=dict(lk_level=8 * n_stereo + 6 * n_track,
+                                     lk_patch=0),
+                level0_on_patch=dict(lk_level=6 * n_stereo + 4 * n_track,
+                                     lk_patch=2 * n_stereo + 2 * n_track))
 
 
 def _check_run(tag, sys_, after, est, poses, launches, expected):
@@ -899,31 +937,10 @@ def phase_chunks(s: Settings, dev) -> dict:
     # set-up: the frames reach the System from the host, as a camera's do
     L, R = L.cpu().numpy(), R.cpu().numpy()
     ts = [i / s.fps for i in range(N_FRAMES)]
-    chunks = [slice(a, a + CHUNK) for a in range(0, N_FRAMES, CHUNK)]
 
     _zero_launches()
-    t0 = time.perf_counter()
-    pf = sys_.prefetcher(depth=2)
-    for sl in chunks[:2]:
-        pf.submit(L[sl], R[sl])
-    handles, chunk_ms, prev = [], [], None
-    for k, sl in enumerate(chunks):
-        t = time.perf_counter()
-        h = sys_.dispatch_chunk(*pf.get(), ts[sl])
-        if k + 2 < len(chunks):
-            pf.submit(L[chunks[k + 2]], R[chunks[k + 2]])
-        if prev is not None:
-            sys_.collect_chunk(prev)
-        chunk_ms.append(1e3 * (time.perf_counter() - t))
-        handles.append(h)
-        prev = h
-    sys_.collect_chunk(prev)
-    sys_.finish()
-    pf.close()
-    total_s = time.perf_counter() - t0
+    after, chunk_ms, total_s = _drive_chunks(sys_, L, R, ts)
     launches = _launches()
-
-    after = [int(v) for h in handles for v in h.outs.status]
     before = [fe.INITING] + after[:-1]
     imp = _implied_launches(before, after)
     _, est = sys_.frame_trajectory()
@@ -959,6 +976,36 @@ def phase_chunks(s: Settings, dev) -> dict:
     res.update(run_step_median_ms_per_frame=float(np.median(ms)),
                chunk_vs_step_max_m=d)
     return res
+
+
+def _drive_chunks(sys_, L, R, ts):
+    """L, R (host frames) in chunks of CHUNK through the prefetcher and
+    pipelined dispatch_chunk / collect_chunk (chunk k+1 dispatched before
+    chunk k is collected), then finish(), as bench.py::_run_pass drives
+    the JAX package. Returns (statuses after each frame, ms per pipelined
+    iteration, total seconds)."""
+    chunks = [slice(a, a + CHUNK) for a in range(0, len(L), CHUNK)]
+    t0 = time.perf_counter()
+    pf = sys_.prefetcher(depth=2)
+    for sl in chunks[:2]:
+        pf.submit(L[sl], R[sl])
+    handles, chunk_ms, prev = [], [], None
+    for k, sl in enumerate(chunks):
+        t = time.perf_counter()
+        h = sys_.dispatch_chunk(*pf.get(), ts[sl])
+        if k + 2 < len(chunks):
+            pf.submit(L[chunks[k + 2]], R[chunks[k + 2]])
+        if prev is not None:
+            sys_.collect_chunk(prev)
+        chunk_ms.append(1e3 * (time.perf_counter() - t))
+        handles.append(h)
+        prev = h
+    sys_.collect_chunk(prev)
+    sys_.finish()
+    pf.close()
+    total_s = time.perf_counter() - t0
+    return ([int(v) for h in handles for v in h.outs.status], chunk_ms,
+            total_s)
 
 
 def phase_flavours(s: Settings, dev, serial: dict, t_start: float) -> dict:
@@ -1016,25 +1063,6 @@ def _loop_drive() -> np.ndarray:
     poses[:, 0, 3] = LOOP_RADIUS_M * sn
     poses[:, 2, 3] = LOOP_RADIUS_M * (1.0 - c)
     return poses
-
-
-def _match_multiscale(desc_q, val_q, desc_c, val_c, F: int, S: int):
-    """The loop closer's multi-scale brute-force Hamming match
-    (ssvio_tpu/loopclosing.py::_match_impl, the adaptive gate): the
-    [S F, S F] distance matrix reduced over both octave axes to [F, F],
-    then best match, mutual check and d <= max(2 min_d, 30). Returns
-    (best_j [F], dist [F], ok [F])."""
-    d = orb.hamming_distance(desc_q[:, None, :], desc_c[None, :, :])
-    big = 1 << 20
-    d = torch.where(val_q[:, None] & val_c[None, :], d,
-                    torch.full_like(d, big))
-    d = d.reshape(S, F, S, F).amin(dim=(0, 2))
-    best_j = torch.argmin(d, dim=1)
-    best = torch.amin(d, dim=1)
-    thresh = torch.clamp(2 * torch.min(best), min=30)
-    back = torch.argmin(d, dim=0)
-    mutual = back[best_j] == torch.arange(F, device=d.device)
-    return best_j, best, (best <= thresh) & (best < big) & mutual
 
 
 def _ang_diff(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -1212,11 +1240,15 @@ def phase_place_recognition(s: Settings, dev, card: str) -> dict:
                              f"{kc['frame']}, {dist} m away) is not a "
                              "keyframe of the first pass near the query")
 
-    # --- match and PnP
-    best_j, hd, ok = _match_multiscale(kq["desc"], kq["dval"], kc["desc"],
-                                       kc["dval"], F, S)
-    timed("multi-scale Hamming match", lambda: _match_multiscale(
-        kq["desc"], kq["dval"], kc["desc"], kc["dval"], F, S))
+    # --- match (the loop closer's, adaptive gate; it needs no database
+    # rows) and PnP
+    match = loopclosing.LoopClosing(
+        dataclasses.replace(s, max_keyframes_db=1), cam.fx, cam.fy, cam.cx,
+        cam.cy, device=dev)._match_impl
+    best_j, hd, ok = match(kq["desc"], kq["dval"], kc["desc"], kc["dval"])
+    timed("multi-scale Hamming match", lambda: match(
+        kq["desc"], kq["dval"], kc["desc"], kc["dval"]))
+    best_j = best_j.long()
     ok = ok & kc["has_lm"][best_j]
     p_w = kc["lm_pos"][best_j].contiguous()
     gen = torch.Generator(device=dev).manual_seed(6)
@@ -1303,10 +1335,9 @@ def phase_place_recognition(s: Settings, dev, card: str) -> dict:
     exact["words_of"] = torch.equal(
         bow.words_of(vocab, kq["desc"], kq["dval"], Lv).cpu(),
         bow.words_of(vocab_cpu, dq_c, dvq_c, Lv))
-    m_cpu = _match_multiscale(dq_c, dvq_c, dc_c, dvc_c, F, S)
+    m_cpu = match(dq_c, dvq_c, dc_c, dvc_c)
     exact["hamming match"] = all(torch.equal(a.cpu(), b) for a, b in zip(
-        _match_multiscale(kq["desc"], kq["dval"], kc["desc"], kc["dval"],
-                          F, S), m_cpu))
+        match(kq["desc"], kq["dval"], kc["desc"], kc["dval"]), m_cpu))
     exact["hamming_distance"] = torch.equal(
         orb.hamming_distance(kq["desc"][:, None, :],
                              kc["desc"][None, :F, :]).cpu(),
@@ -1369,6 +1400,193 @@ def phase_place_recognition(s: Settings, dev, card: str) -> dict:
     return res
 
 
+def _loop8_poses() -> np.ndarray:
+    """bench.py:296-300's trajectory, LOOP8_LAPS laps instead of 5."""
+    circ = synthetic.loop_trajectory(LOOP8_LAP, radius=LOOP8_RADIUS_M)
+    poses = np.concatenate([circ] * LOOP8_LAPS + [circ[:LOOP8_LAP // 4]])
+    return poses[:len(poses) // CHUNK * CHUNK]
+
+
+def _kf_metrics(sys_, poses) -> dict:
+    """bench.py:334-346: the keyframe ATE, and the end drift with the
+    gauge fixed on the first quarter of the keyframes."""
+    _, est = sys_.keyframe_trajectory()
+    gt = poses[[k["frame_id"] for k in sys_.keyframes]]
+    q = max(4, len(gt) // 4)
+    _, Rm, tr = ate.umeyama_alignment(est[:q, :, 3], gt[:q, :, 3])
+    end = est[-1, :, 3] @ Rm.T + tr
+    return dict(kf_ate_m=ate.ape_translation(est[:, :, 3],
+                                             gt[:, :, 3])["rmse"],
+                end_drift_m=float(np.linalg.norm(end - gt[-1, :, 3])))
+
+
+def _timed_calls(obj, name, log):
+    """Wrap obj.name (an instance attribute from now on) to append the
+    milliseconds of each call, the device synchronised on both sides, to
+    log; the wrapper returns what the method returns."""
+    fn = getattr(obj, name)
+
+    def wrapped(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a, **k)
+        torch.cuda.synchronize()
+        log.append((1e3 * (time.perf_counter() - t0), a, out))
+        return out
+    setattr(obj, name, wrapped)
+
+
+def _range(vals):
+    return [min(vals), max(vals)] if vals else None
+
+
+def phase_loop_system(dev, card: str) -> dict:
+    """Phase 8 (module docstring)."""
+    s = dataclasses.replace(bench_loop_settings(),
+                            max_keyframes_db=LOOP8_DB_ROWS)
+    poses = _loop8_poses()
+    n = len(poses)
+    print(f"loop closing in the System [kitti_bench, bench_loop_settings()]: "
+          f"{LOOP8_LAPS} laps of {LOOP8_LAP} frames + a quarter lap, "
+          f"{n} frames in chunks of {CHUNK} (the JAX loop bench: 5 laps, "
+          f"{(5 * LOOP8_LAP + LOOP8_LAP // 4) // CHUNK * CHUNK} frames)")
+    cam = s.cam_left
+    sys_on = System(s, enable_backend=True, enable_loop_closing=True,
+                    device=dev)
+    t0 = time.perf_counter()
+    L, R = synthetic_torch.render_stereo_sequence_device(
+        synthetic.SyntheticWorld(**LOOP8_WORLD), poses, cam.fx, cam.fy,
+        cam.cx, cam.cy, s.baseline, s.image_width, s.image_height,
+        pad_w=sys_on.w, pad_h=sys_on.h, noise_std=LOOP8_NOISE, device=dev)
+    L, R = L.cpu().numpy(), R.cpu().numpy()
+    print(f"  rendered {n} stereo pairs on the card in "
+          f"{time.perf_counter() - t0:.2f} s")
+    ts = [i / s.fps for i in range(n)]
+
+    out = {}
+    lc = sys_on.loopclosing
+    ingest, verify, pgo_runs = [], [], []
+    _timed_calls(lc, "process_keyframes_batch", ingest)
+    _timed_calls(lc, "_complete_loop", verify)
+    _timed_calls(lc, "_pose_graph_optimize", pgo_runs)
+    for tag, sys_ in (("loop_on", sys_on),
+                      ("loop_off", System(s, enable_backend=True,
+                                          enable_loop_closing=False,
+                                          device=dev))):
+        _zero_launches()
+        after, chunk_ms, total_s = _drive_chunks(sys_, L, R, ts)
+        launches = _launches()
+        imp = _implied_launches([fe.INITING] + after[:-1], after)
+        _, est = sys_.frame_trajectory()
+        res = dict(frames=n, n_keyframes=sys_.stats["n_keyframes"],
+                   n_ba=sys_.stats["n_ba"],
+                   n_lost=sum(a == fe.LOST for a in after),
+                   launches=launches,
+                   ms_per_frame=1e3 * total_s / n,
+                   median_ms_per_chunk=float(np.median(chunk_ms)),
+                   frame_ate_m=ate.ape_translation(est[:, :, 3],
+                                                   poses[:, :, 3])["rmse"],
+                   **_kf_metrics(sys_, poses))
+        if res["n_lost"]:
+            raise AssertionError(f"loop system [{tag}]: the run went LOST")
+        if launches != _expect(**imp["level0_on_level"]):
+            raise AssertionError(f"loop system [{tag}]: kernel launches "
+                                 f"{launches} != {imp['level0_on_level']} "
+                                 "implied by the statuses")
+        if not np.all(np.isfinite(est)) or est.shape != (n, 3, 4):
+            raise AssertionError(f"loop system [{tag}]: trajectory not "
+                                 "finite / wrong shape")
+        out[tag] = res
+    ev = lc.events
+    on = out["loop_on"]
+    on.update(
+        n_loops=sys_on.stats["n_loops"],
+        n_fused=sys_on.stats.get("n_fused", 0), n_events=len(ev),
+        db_rows=lc.n, db_cap=lc.cap,
+        vocab_words=None if lc.vocab is None else lc.vocab.n_words,
+        warnings=sys_on.stats["warnings"][:4],
+        score_range=_range([e.score for e in ev]),
+        matches_range=_range([e.n_matches for e in ev]),
+        inliers_range=_range([e.n_inliers for e in ev]),
+        error_range=_range([e.error for e in ev]),
+        corrected=[dict(cur=e.cur_gid, loop=e.loop_gid, error=e.error,
+                        inliers=e.n_inliers, fused=e.n_fused)
+                   for e in ev if e.corrected],
+        ingest_ms_per_keyframe=(sum(ms for ms, _, _ in ingest)
+                                / max(1, sum(len(a[1]) for _, a, _ in
+                                             ingest))),
+        ingest_calls=len(ingest),
+        verify_ms=_range([ms for ms, _, _ in verify]),
+        verify_ms_median=(float(np.median([ms for ms, _, _ in verify]))
+                          if verify else None),
+        n_verifications=len(verify),
+        pgo_ms=[ms for ms, _, _ in pgo_runs])
+    print(f"  [{card}]")
+    for tag in ("loop_on", "loop_off"):
+        print(f"  {tag}: " + json.dumps(out[tag]))
+    if lc.vocab is None:
+        raise AssertionError("loop system: the vocabulary was never trained")
+    if not (lc.cap > LOOP8_DB_ROWS and any(
+            "database grown" in w for w in sys_on.stats["warnings"])):
+        raise AssertionError("loop system: the database never grew")
+    if on["n_loops"] < 1 or on["n_fused"] <= 0:
+        raise AssertionError(f"loop system: {on['n_loops']} accepted "
+                             f"corrections, {on['n_fused']} fused; events "
+                             f"{ev[-8:]}")
+    if not on["end_drift_m"] < out["loop_off"]["end_drift_m"]:
+        raise AssertionError("loop system: end drift loop on "
+                             f"{on['end_drift_m']} m >= loop off "
+                             f"{out['loop_off']['end_drift_m']} m")
+    if not on["kf_ate_m"] < ATE_MAX_M:
+        raise AssertionError(f"loop system: keyframe ATE {on['kf_ate_m']} m "
+                             f">= {ATE_MAX_M} m")
+
+    # --- relocalization, through run_step on the loop-on System
+    blank = np.full_like(L[0], 128)
+    k = RELOC_FRAME
+    frames = [(blank, blank)] * RELOC_BLANKS + [(L[i], R[i])
+                                                 for i in range(k, k + 5)]
+    _zero_launches()
+    before, after = [], []
+    n_reloc = []
+    for i, (a, b) in enumerate(frames):
+        before.append(sys_on.status)
+        sys_on.run_step(a, b, 100.0 + 0.1 * i)
+        after.append(sys_on.status)
+        n_reloc.append(sys_on.stats.get("n_relocalizations", 0))
+    # the truth in the System's gauge: its world frame is the camera of
+    # its first keyframe (the frame it initialised at)
+    f0 = sys_on.keyframes[0]["frame_id"]
+    g0 = np.linalg.inv(np.vstack([poses[f0], [0.0, 0.0, 0.0, 1.0]]))
+    err = [float(np.linalg.norm(sys_on.trajectory[-5 + j][2][:, 3]
+                                - g0[:3, :3] @ poses[k + j][:, 3]
+                                - g0[:3, 3])) for j in range(5)]
+    imp = _implied_launches(before, after)
+    reloc = dict(init_frame=f0, statuses=after, n_relocalizations=n_reloc,
+                 reloc_err_m=err[0], resumed_err_m=err[1:],
+                 launches=_launches(), implied=imp["level0_on_level"])
+    print("  relocalization: " + json.dumps(reloc))
+    nb = RELOC_BLANKS
+    if after[nb - 1] != fe.LOST or n_reloc[nb - 1] != 0:
+        raise AssertionError("relocalization: blank frames did not drive "
+                             "the System LOST, or relocalized it")
+    if n_reloc[nb] != 1 or after[nb] != fe.TRACKING_GOOD \
+            or not err[0] < RELOC_TOL_M:
+        raise AssertionError(f"relocalization: frame {k} did not "
+                             f"relocalize within {RELOC_TOL_M} m: {reloc}")
+    if fe.LOST in after[nb:] or not max(err) < RELOC_TOL_M:
+        raise AssertionError(f"relocalization: tracking did not resume: "
+                             f"{reloc}")
+    if reloc["launches"] != _expect(**imp["level0_on_level"]):
+        raise AssertionError(f"relocalization: kernel launches "
+                             f"{reloc['launches']} != {imp['level0_on_level']}")
+    out["reloc"] = reloc
+    out["launches"] = {name: out["loop_on"]["launches"][name]
+                       + out["loop_off"]["launches"][name]
+                       + reloc["launches"][name] for name in _launches()}
+    return out
+
+
 def main() -> None:
     t_start = time.perf_counter()
     card = phase_device()
@@ -1385,6 +1603,7 @@ def main() -> None:
         frames["seconds"] = time.perf_counter() - t0
         chunk = phase_chunks(robotcar, dev)
         place = phase_place_recognition(kitti, dev, card)
+        loop8 = phase_loop_system(dev, card)
         flavours = phase_flavours(kitti, dev, frames, t_start)
     table = []
     for name, meta in KERNELS.items():
@@ -1395,7 +1614,7 @@ def main() -> None:
         table.append(dict(
             name=name, route="cuda", **meta,
             launches=(step["launches"][name] + chunk["launches"][name]
-                      + place["launches"][name]
+                      + place["launches"][name] + loop8["launches"][name]
                       + sum(f["launches"][name] for f in flavours.values())),
             max_abs_err=max(r["max_abs_err"] for r in mine),
             ms=big["ms"], plain_ms=big["plain_ms"], bound_ms=big["bound_ms"],

@@ -299,6 +299,16 @@ def bench_settings() -> Settings:
     return s
 
 
+def bench_loop_settings() -> Settings:
+    """The JAX bench's configuration as it runs (bench.py:51-69):
+    bench_settings() with loop closing on and the database warm-up at 24
+    keyframes (the reference's gate is 50, kitti_00.yaml:70)."""
+    s = bench_settings()
+    s.loop_closing_open = True
+    s.loop_db_min_size = 24
+    return s
+
+
 def robotcar_xb3_wide_settings() -> Settings:
     """The bench's capacities (bench_settings) at the camera geometry of
     the Oxford RobotCar Dataset's Bumblebee XB3 wide-baseline stereo pair

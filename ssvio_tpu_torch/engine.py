@@ -18,17 +18,19 @@ between chunks, the per-frame outputs stay on the device, and the host
 reads back ONE packed vector per chunk (`pack_readback`). CUDA graphs of
 the per-frame step are later work (ROADMAP Queue 1 #10).
 
-Loop closing is not ported (ROADMAP Queue 1 #12), so `FrameOut` carries no
-loop descriptors (`desc`/`dval` in the JAX package).
+With `loop_desc` the keyframe branch also emits the loop closer's
+descriptor ladder (`loopclosing.loop_describe`) of every keyframe it
+inserts, in `FrameOut.desc` / `dval`, as the JAX engine does.
 """
 
 from __future__ import annotations
 
-from typing import Callable, List, NamedTuple, Tuple
+from typing import Callable, List, NamedTuple, Optional, Tuple
 
 import torch
 
 from ssvio_tpu_torch import frontend as fe
+from ssvio_tpu_torch import loopclosing
 from ssvio_tpu_torch import map as mapmod
 from ssvio_tpu_torch.ops import ba, se3
 
@@ -45,8 +47,10 @@ class EngineCarry(NamedTuple):
 
 class FrameOut(NamedTuple):
     """Per-frame outputs of a chunk, stacked over its K frames, on the
-    device. The scalars are read back through `pack_readback`; `feat`
-    stays on the device."""
+    device. The scalars are read back through `pack_readback`; `feat`,
+    `desc` and `dval` stay on the device. `desc`/`dval` hold the loop
+    descriptors of keyframe frames (zeros elsewhere); with an engine built
+    without loop_desc they have 0 rows."""
     T_cw: torch.Tensor        # [K, 3, 4] post-BA pose of the frame
     status: torch.Tensor      # [K] int32 status AFTER the frame
     n_inliers: torch.Tensor   # [K] int32
@@ -54,6 +58,8 @@ class FrameOut(NamedTuple):
     kf_slot: torch.Tensor     # [K] int32 window slot of that keyframe (-1)
     kf_gid: torch.Tensor      # [K] int32 global id of that keyframe (-1)
     feat: fe.FeatState        # feature state after each frame, [K, ...]
+    desc: torch.Tensor        # [K, S*F, 8] int32 loop descriptors
+    dval: torch.Tensor        # [K, S*F] bool (or [K, 0])
 
 
 class _Frame(NamedTuple):
@@ -66,6 +72,8 @@ class _Frame(NamedTuple):
     kf_gid: int
     feat: fe.FeatState
     ran_ba: bool
+    desc: Optional[torch.Tensor]   # loop descriptors of a keyframe (or None)
+    dval: Optional[torch.Tensor]
 
 
 class Engine:
@@ -74,7 +82,7 @@ class Engine:
     through."""
 
     def __init__(self, frontend: fe.Frontend, enable_backend: bool,
-                 mesh=None):
+                 mesh=None, loop_desc: bool = False):
         if mesh is not None:
             raise NotImplementedError(
                 "Landmark-sharded BA over a device mesh is not ported to "
@@ -82,6 +90,11 @@ class Engine:
         self.fe = frontend
         self.s = frontend.s
         self.enable_backend = enable_backend
+        # loop_desc: keyframe frames emit the loop-closing descriptor
+        # ladder (FrameOut.desc)
+        self.loop_desc = loop_desc
+        self._desc_rows = (self.s.loop_desc_scales * self.s.max_features
+                           if loop_desc else 0)
 
     # ------------------------------------------------------------------
     def _step(self, carry: EngineCarry, img_l: torch.Tensor,
@@ -109,7 +122,8 @@ class Engine:
         dev = f.device
         # u8 frames (camera-native, 4x fewer bytes to upload) are promoted
         # on the device; the right eye is undistorted only where it is used
-        pyr_l = f._build_pyramid(f._undistort_left(img_l.to(torch.float32)))
+        img_l = f._undistort_left(img_l.to(torch.float32))
+        pyr_l = f._build_pyramid(img_l)
         status = carry.status
         is_init = status == fe.INITING
         is_track = status in (fe.TRACKING_GOOD, fe.TRACKING_BAD)
@@ -134,6 +148,7 @@ class Engine:
         rel_f = out.rel_motion
         kf_slot = kf_gid = -1
         ran_ba = False
+        desc = dval = None
         if need_kf:
             pyr_r = f._build_pyramid(
                 f._undistort_right(img_r().to(torch.float32)))
@@ -150,6 +165,13 @@ class Engine:
             accept = (not is_init or (n_created >= s.min_init_landmarks
                                       and n_stereo >= s.init_good))
             if accept:
+                if self.loop_desc:
+                    desc, dval = loopclosing.loop_describe(
+                        img_l, feat2.xy, feat2.valid, s.loop_desc_scales,
+                        s.scale_factor,
+                        screen_threshold=(s.min_th_fast if s.loop_screen_fast
+                                          else 0.0),
+                        pattern=loopclosing.pattern_from_settings(s))
                 T2 = T_in
                 if self.enable_backend and not is_init:
                     # sliding-window BA rides steady keyframes only (the
@@ -171,7 +193,7 @@ class Engine:
                     else status_t)
         c2 = EngineCarry(pyr_l, feat_f, T_f, rel_f, m_f, status_f)
         return c2, _Frame(T_f, status_f, out.n_inliers, kf_slot, kf_gid,
-                          feat_f, ran_ba)
+                          feat_f, ran_ba, desc, dval)
 
     # ------------------------------------------------------------------
     def run_chunk(self, carry: EngineCarry, imgs_l: torch.Tensor,
@@ -185,6 +207,10 @@ class Engine:
                                    lambda k=k: imgs_r[k])
             frames.append(fr)
         dev = self.fe.device
+        no_desc = torch.zeros((self._desc_rows, 8), dtype=torch.int32,
+                              device=dev)
+        no_dval = torch.zeros((self._desc_rows,), dtype=torch.bool,
+                              device=dev)
         host = torch.tensor([[fr.status, fr.kf_slot >= 0, fr.kf_slot,
                               fr.kf_gid] for fr in frames],
                             dtype=torch.int32).to(dev)
@@ -197,7 +223,11 @@ class Engine:
             kf_slot=host[:, 2],
             kf_gid=host[:, 3],
             feat=fe.FeatState(*[torch.stack(v) for v in
-                                zip(*[fr.feat for fr in frames])]))
+                                zip(*[fr.feat for fr in frames])]),
+            desc=torch.stack([no_desc if fr.desc is None else fr.desc
+                              for fr in frames]),
+            dval=torch.stack([no_dval if fr.dval is None else fr.dval
+                              for fr in frames]))
         return (carry, outs, pack_readback(carry, outs),
                 sum(fr.ran_ba for fr in frames))
 

@@ -225,6 +225,13 @@ class Frontend:
         return FeatState(xy=xy, lm_slot=lm_slot, lm_gid=lm_gid,
                          valid=ex_valid | new_ok, octave=octave), new_ok
 
+    def detect_features(self, img) -> FeatState:
+        """Detection on a bare frame: `_detect_merge` on an empty feature
+        state (the relocalization entry: a LOST frame has no features left
+        to merge with)."""
+        return self._detect_merge(img, empty_feat_state(self.n_feat,
+                                                        self.device))[0]
+
     # ------------------------------------------------------------------
     def _stereo_match(self, pyr_l: Pyr, pyr_r: Pyr, feat: FeatState, T_cw,
                      lm_pos, lm_gid):

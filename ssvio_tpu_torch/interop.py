@@ -18,6 +18,7 @@ import torch
 from ssvio_tpu_torch import config
 from ssvio_tpu_torch.engine import EngineCarry, FrameOut
 from ssvio_tpu_torch.frontend import FeatState, Pyr
+from ssvio_tpu_torch.loopclosing import LoopClosing, LoopEvent
 from ssvio_tpu_torch.map import MapState
 from ssvio_tpu_torch.ops.bow import Vocabulary
 from ssvio_tpu_torch.ops.pgo import PGOProblem
@@ -68,13 +69,14 @@ def engine_carry(src: Any, device=None) -> EngineCarry:
 
 
 def frame_out(src: Any, device=None) -> FrameOut:
-    """A chunk's stacked per-frame outputs (JAX `engine.FrameOut`, whose
-    loop descriptors `desc`/`dval` the port does not carry)."""
-    fields = [f for f in FrameOut._fields if f != "feat"]
+    """A chunk's stacked per-frame outputs (JAX `engine.FrameOut`), its
+    uint32 loop descriptors carried as int32 bits."""
+    fields = [f for f in FrameOut._fields if f not in ("feat", "desc")]
     return FrameOut(
         **{f: torch.as_tensor(np.array(np.asarray(_field(src, f))),
                               device=device) for f in fields},
-        feat=feat_state(_field(src, "feat"), device))
+        feat=feat_state(_field(src, "feat"), device),
+        desc=descriptors(_field(src, "desc"), device))
 
 
 def settings(src: Any) -> config.Settings:
@@ -112,3 +114,51 @@ def vocabulary(src: Any, device=None) -> Vocabulary:
 
 def pgo_problem(src: Any, device=None) -> PGOProblem:
     return to_torch(src, PGOProblem, device)
+
+
+_settings_of = settings
+
+
+def loop_closing(src: Any, settings=None, device=None) -> LoopClosing:
+    """The port's LoopClosing in the state of a JAX `LoopClosing`: the
+    database tensors (descriptors as int32 bits), the row bookkeeping, the
+    vocabulary, the gate state (last closure, drift-rate anchor and
+    history, loop edges, events) and the deferred candidates. `settings`:
+    the port's Settings, by default copied from `src.s`."""
+    s = settings if settings is not None else _settings_of(_field(src, "s"))
+    lc = LoopClosing(s, float(src._fx), float(src._fy), float(src._cx),
+                     float(src._cy), device=device)
+
+    def t(a):
+        return torch.as_tensor(np.array(np.asarray(a)), device=device)
+
+    lc.cap, lc.n = int(src.cap), int(src.n)
+    lc.bow_db = t(src.bow_db)
+    lc.desc_db = descriptors(src.desc_db, device)
+    lc.desc_valid, lc.kp_xy = t(src.desc_valid), t(src.kp_xy)
+    lc.lm_pos, lc.lm_has = t(src.lm_pos), t(src.lm_has)
+    lc.lm_gid_db = t(src.lm_gid_db)
+    lc.db_gid = np.array(src.db_gid, np.int64)
+    lc.db_gid_dev = t(src.db_gid_dev).to(torch.int32)
+    lc.row_of_gid = {int(g): int(r) for g, r in src.row_of_gid.items()}
+    lc.vocab = (None if src.vocab is None
+                else vocabulary(src.vocab, device))
+    lc._vocab_levels = int(src._vocab_levels)
+    lc._vocab_loaded = bool(src._vocab_loaded)
+    lc.last_closed_gid = int(src.last_closed_gid)
+    a = getattr(src, "_residual_anchor", None)
+    lc._residual_anchor = None if a is None else (int(a[0]), float(a[1]))
+    lc._large_hist = [(int(g), np.array(x))
+                      for g, x in getattr(src, "_large_hist", [])]
+    lc.loop_edges = [(int(a), int(b), np.array(Z, np.float32))
+                     for a, b, Z in src.loop_edges]
+    lc.events = [LoopEvent(*ev) for ev in src.events]
+    g = getattr(src, "last_loop_gid", None)
+    lc.last_loop_gid = None if g is None else int(g)
+    lc._pending = [
+        (t(pack), [int(r) for r in rows], [int(x) for x in gids],
+         tuple(t(f) for f in feats), [np.array(T, np.float32) for T in Ts],
+         int(gauge_idx))
+        for pack, rows, gids, feats, Ts, gauge_idx
+        in getattr(src, "_pending", [])]
+    return lc

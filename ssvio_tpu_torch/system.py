@@ -1,5 +1,5 @@
 """System facade: construction, wiring, the per-frame step API and the
-chunk API (port of `ssvio_tpu/system.py`, loop closing off).
+chunk API (port of `ssvio_tpu/system.py`).
 
 Construct from a Settings object (or a reference-format YAML path), then
 drive with `run_step(left, right, timestamp)` one frame at a time, or with
@@ -9,9 +9,18 @@ engine's one per-frame step, so they give the same answers; they differ
 only in when the host records the frames. Local BA runs right after each
 steady keyframe insertion, on the System's device: the current CUDA
 device unless the caller passes one (device="cpu" for the CPU; without a
-CUDA device, no device raises). What is not ported yet raises
-NotImplementedError naming its ROADMAP item: loop closing and relocalization (Queue 1 #12) and
-landmark-sharded BA over a mesh (#14).
+CUDA device, no device raises).
+
+Loop closing (`loopclosing.py`, on by default as Settings.loop_closing_open)
+ingests every keyframe: at once on the per-frame path, at the chunk's
+collect on the chunk path, where its candidates are verified at the next
+collect (or at `finish()`). A correction applied while a chunk was in
+flight is recorded in `_gauge_events`, and collect_chunk re-gauges that
+chunk's read-back poses with it. A LOST frame relocalizes against the
+keyframe database when Settings.relocalization_open is set: the next
+run_step frame, or the chunk's last frame at its collect. Landmark-sharded
+BA over a mesh is not ported yet and raises NotImplementedError naming its
+ROADMAP item (#14).
 """
 
 from __future__ import annotations
@@ -27,7 +36,8 @@ from ssvio_tpu_torch import engine as eng
 from ssvio_tpu_torch import frontend as fe
 from ssvio_tpu_torch import map as mapmod
 from ssvio_tpu_torch.config import Settings
-from ssvio_tpu_torch.ops import se3
+from ssvio_tpu_torch.loopclosing import LoopClosing, LoopEvent
+from ssvio_tpu_torch.ops import ba, se3
 
 
 def _not_ported(what: str, item: str):
@@ -43,6 +53,10 @@ class ChunkHandle(NamedTuple):
     timestamps: List[float]
     n_frames: int
     n_ba: int                     # local BAs the chunk ran
+    gauge_idx: int                # len(_gauge_events) at dispatch
+    m: mapmod.MapState            # the map after the chunk (loop ingest)
+    last_l: Optional[torch.Tensor]  # the chunk's last images, padded, for
+    last_r: Optional[torch.Tensor]  # relocalization (loop closing on)
 
 
 class System:
@@ -57,9 +71,6 @@ class System:
                                else enable_backend)
         enable_loop = (settings.loop_closing_open if enable_loop_closing is None
                        else enable_loop_closing)
-        if enable_loop:
-            raise _not_ported("Loop closing (enable_loop_closing=True or "
-                              "Settings.loop_closing_open)", "#12")
         if mesh is not None:
             raise _not_ported("Landmark-sharded BA over a device mesh", "#14")
         # the GPU unless the caller asks for the CPU (device="cpu")
@@ -75,12 +86,24 @@ class System:
         self.frontend = fe.Frontend(settings, self.w, self.h,
                                     settings.image_width, settings.image_height,
                                     device=self.device)
-        # the per-frame step, shared by run_step and the chunk API
-        self._engine = eng.Engine(self.frontend, self.enable_backend)
+        # the per-frame step, shared by run_step and the chunk API; with
+        # loop closing its keyframe branch emits the loop descriptors
+        self._engine = eng.Engine(self.frontend, self.enable_backend,
+                                  loop_desc=enable_loop)
+        self.loopclosing: Optional[LoopClosing] = None
         self.reset()
+        if enable_loop:
+            self.loopclosing = self._new_loopclosing()
 
-    def reset(self):
-        """Return to the fresh INITING state."""
+    def _new_loopclosing(self) -> LoopClosing:
+        f = self.frontend
+        return LoopClosing(self.s, f._fx, f._fy, f._cx, f._cy,
+                           device=self.device)
+
+    def reset(self, keep_vocab: bool = False):
+        """Return to the fresh INITING state. keep_vocab carries the
+        trained BoW vocabulary into the fresh loop-closing database (as a
+        pretrained vocabulary would be loaded)."""
         self.map = mapmod.empty_map(self.s.max_window, self.s.max_landmarks,
                                     self.device)
         self.status = fe.INITING
@@ -89,14 +112,36 @@ class System:
         self.feat = fe.empty_feat_state(self.s.max_features, self.device)
         self.last_pyr = None
         self.frame_id = -1
+        # tracking health: the median tracked inlier count of the last 30
+        # frames (run_step) or of the latest chunk, and the run's typical
+        # health, the median of at most 512 of those (trimmed by 256); the
+        # loop closer's health gate reads both
         self.track_health = None
+        self.track_health_typical = None
         self._health_window = []
+        self._health_history = []
         self._lost_since_kf = False  # a LOST gap since the last keyframe
         self.trajectory = []        # (timestamp, frame_id, T_wc [3,4] np)
         self.keyframes = []         # dicts: gid, frame_id, timestamp, T_cw (np)
         self._rec_by_gid = {}       # gid -> record dict (same objects)
         self.kf_rel_edges = []      # (gid_prev, gid, Z [3,4]) odometry edges
-        self.stats = {"n_keyframes": 0, "n_ba": 0, "n_loops": 0}
+        # rigid gauge corrections applied by loop closing, in order: a
+        # chunk dispatched before one computed its poses in the old gauge,
+        # and collect_chunk right-composes the corrections since its
+        # dispatch onto them
+        self._gauge_events = []     # [C [3,4] np, ...]
+        self.stats = {"n_keyframes": 0, "n_ba": 0, "n_loops": 0,
+                      "warnings": []}
+        if self.loopclosing is not None:
+            old = self.loopclosing
+            self.loopclosing = lc = self._new_loopclosing()
+            if keep_vocab and old.vocab is not None:
+                lc.vocab = old.vocab
+                lc._vocab_levels = old._vocab_levels
+                lc._vocab_loaded = old._vocab_loaded
+                lc.bow_db = torch.zeros((lc.cap, old.vocab.n_words),
+                                        dtype=torch.float32,
+                                        device=self.device)
 
     # ------------------------------------------------------------------
     def _pad(self, img) -> torch.Tensor:
@@ -139,29 +184,57 @@ class System:
         self.map = carry.m
         self.status = carry.status
 
+    def _add_health(self, value: float):
+        self._health_history.append(value)
+        if len(self._health_history) > 512:
+            del self._health_history[:256]
+        self.track_health_typical = float(np.median(self._health_history))
+
     @torch.no_grad()
     def run_step(self, left, right, timestamp: float = 0.0) -> np.ndarray:
         """Process one stereo pair ([H, W] numpy arrays or tensors): one
-        frame of the engine's step (engine.py), recorded at once. Returns
+        frame of the engine's step (engine.py), recorded at once, then loop
+        closing for a keyframe. A frame entered in LOST relocalizes instead
+        when loop closing and Settings.relocalization_open are on. Returns
         the camera pose T_wc [3,4] np."""
         self.frame_id += 1
+        if (self.status == fe.LOST and self.loopclosing is not None
+                and self.s.relocalization_open):
+            f = self.frontend
+            pyr_l = f._build_pyramid(f._undistort_left(self._pad(left)))
+            self._try_relocalize(pyr_l, right, timestamp)
+            self.last_pyr = pyr_l
+        else:
+            self._step_frame(left, right, timestamp)
+        T_wc = se3.inverse(self.T_cw).cpu().numpy()
+        self.trajectory.append((timestamp, self.frame_id, T_wc))
+        return T_wc
+
+    def _step_frame(self, left, right, timestamp: float):
         tracked = self.status in (fe.TRACKING_GOOD, fe.TRACKING_BAD)
         carry, fr = self._engine._step(self._carry(), self._pad(left),
                                        lambda: self._pad(right))
         self._install(carry)
         if tracked:
-            self._health_window = (self._health_window
-                                   + [int(fr.n_inliers)])[-30:]
+            n_inl = int(fr.n_inliers)
+            self._health_window = (self._health_window + [n_inl])[-30:]
             self.track_health = float(np.median(self._health_window))
+            self._add_health(float(n_inl))
         if fr.kf_slot >= 0:
             self._record_keyframe_at(fr.kf_gid, timestamp,
                                      fr.T_cw.cpu().numpy(), self.frame_id)
         if fr.ran_ba:
             self.stats["n_ba"] += 1
             self._refresh_keyframe_records()
-        T_wc = se3.inverse(self.T_cw).cpu().numpy()
-        self.trajectory.append((timestamp, self.frame_id, T_wc))
-        return T_wc
+        if fr.kf_slot >= 0 and self.loopclosing is not None:
+            self._count_event(self.loopclosing.process_keyframe(
+                self, fr.kf_gid, carry.pyr_last, self.feat, self.map,
+                self.T_cw, desc=(fr.desc, fr.dval)))
+
+    def _count_event(self, ev: Optional[LoopEvent]):
+        if ev is not None and ev.corrected:
+            self.stats["n_loops"] += 1
+            self.stats["n_fused"] = self.stats.get("n_fused", 0) + ev.n_fused
 
     # ------------------------------------------------------------------
     def _pad_stack(self, imgs) -> torch.Tensor:
@@ -275,9 +348,13 @@ class System:
             timestamps = [0.0] * K
         imgs_l = self._device_stack(lefts)
         imgs_r = self._device_stack(rights)
+        gauge_idx = len(self._gauge_events)
         carry, outs, packed, n_ba = self._engine.run_chunk(self._carry(),
                                                            imgs_l, imgs_r)
         self._install(carry)
+        last_l = last_r = None
+        if self.loopclosing is not None:
+            last_l, last_r = imgs_l[K - 1].clone(), imgs_r[K - 1].clone()
         ready = None
         if packed.is_cuda:
             host = torch.empty(packed.shape, dtype=packed.dtype,
@@ -286,32 +363,53 @@ class System:
             ready = torch.cuda.Event()
             ready.record(torch.cuda.current_stream(self.device))
             packed = host
-        return ChunkHandle(packed, ready, outs, list(timestamps), K, n_ba)
+        return ChunkHandle(packed, ready, outs, list(timestamps), K, n_ba,
+                           gauge_idx, carry.m, last_l, last_r)
 
+    @torch.no_grad()
     def collect_chunk(self, handle: ChunkHandle) -> np.ndarray:
         """Wait for a dispatched chunk's readback and record its frames
-        (trajectory, keyframe records, odometry edges). Returns T_wc
-        [K, 3, 4]."""
+        (trajectory, keyframe records, odometry edges), re-gauged by the
+        loop corrections applied since its dispatch. Then loop closing:
+        the candidates deferred at the previous collect are verified, this
+        chunk's keyframes are ingested (their candidates deferred to the
+        next collect), and a chunk that ended LOST relocalizes on its last
+        frame. Returns T_wc [K, 3, 4]."""
         if handle.ready is not None:
             handle.ready.synchronize()
         packed = handle.packed.numpy()
         K = handle.n_frames
         P = eng.PER_FRAME_PACK
         per = packed[:K * P].reshape(K, P)
-        T_cw_k = per[:, :12].reshape(K, 3, 4)
+        T_cw_k = per[:, :12].reshape(K, 3, 4).copy()
         statuses = per[:, 12].astype(np.int32)
         kf_flag = per[:, 14] > 0.5
         kf_gid_k = per[:, 16].astype(np.int32)
         tail = packed[K * P:]
         W = self.s.max_window
-        window = (tail[1:1 + W].astype(np.int32), tail[1 + W:1 + 2 * W] > 0.5,
-                  tail[1 + 2 * W:1 + 14 * W].reshape(W, 3, 4).copy())
+        tail_gids = tail[1:1 + W].astype(np.int32)
+        tail_valid = tail[1 + W:1 + 2 * W] > 0.5
+        kf_pose_tail = tail[1 + 2 * W:1 + 14 * W].reshape(W, 3, 4).copy()
+
+        # re-gauge: the corrections applied while this chunk was in flight
+        # are right-composed onto its poses and window, exactly what the
+        # live window received (a rigid C cancels in Z = T_cur T_prev^-1).
+        # The handle's map predates them; the ingest's snapshot refresh
+        # then writes pre-correction positions into still-active rows, and
+        # a later post-correction snapshot refreshes them again (the JAX
+        # package measured re-gauging that map instead: worse)
+        for C in self._gauge_events[handle.gauge_idx:]:
+            T_cw_k = se3.compose_np(T_cw_k, C)
+            kf_pose_tail = se3.compose_np(kf_pose_tail, C)
+        window = (tail_gids, tail_valid, kf_pose_tail)
 
         # tracking health: median inlier count of the chunk's tracked
         # frames (INITING/LOST report none)
         tracked = np.isin(statuses, (fe.TRACKING_GOOD, fe.TRACKING_BAD))
         if tracked.any():
-            self.track_health = float(np.median(per[:, 13][tracked]))
+            self.track_health = float(np.median(
+                per[:, 13][tracked].astype(np.float32)))
+            self._add_health(self.track_health)
 
         T_wc_k = np.empty_like(T_cw_k)
         lost_since_kf = self._lost_since_kf
@@ -336,14 +434,101 @@ class System:
         self._lost_since_kf = lost_since_kf
         self.stats["n_ba"] += handle.n_ba
         self._refresh_keyframe_records(window)
+        if self.loopclosing is None:
+            return T_wc_k
+
+        # the chunk's keyframe poses and the gauge index, captured together
+        # BEFORE polling: poll may apply corrections (new gauge events)
+        gauge_idx_now = len(self._gauge_events)
+        idxs, gids, T_list = [], [], []
+        for i in np.nonzero(kf_flag)[0]:
+            rec = self._rec_by_gid.get(int(kf_gid_k[i]))
+            if rec is None:
+                self._warn(f"loop closing skipped keyframe gid="
+                           f"{int(kf_gid_k[i])}: no host record")
+                continue
+            idxs.append(int(i))
+            gids.append(int(kf_gid_k[i]))
+            T_list.append(np.asarray(rec["T_cw"]))
+        # candidates deferred at the previous collect first, then this
+        # chunk's keyframes (the handle's map is the one their features
+        # link into; the window gids come from the readback)
+        self._poll_loopclosing()
+        if idxs:
+            o = handle.outs
+            ix = torch.as_tensor(idxs, device=o.desc.device)
+            batch = (o.desc[ix], o.dval[ix], o.feat.xy[ix], o.feat.valid[ix],
+                     o.feat.lm_slot[ix], o.feat.lm_gid[ix], o.kf_gid[ix])
+            active = [int(g) for g, v in zip(tail_gids, tail_valid) if v]
+            self.loopclosing.process_keyframes_batch(
+                self, gids, T_list, batch, handle.m, active, defer=True,
+                gauge_idx=gauge_idx_now)
+
+        # LOST at the chunk's end: relocalize on its last frame (the chunk
+        # dead-ends on LOST; recovery is a host decision between chunks).
+        # A chunk already dispatched from the LOST state runs as it is.
+        if int(tail[0]) == fe.LOST and self.s.relocalization_open:
+            f = self.frontend
+            pyr_last = f._build_pyramid(f._undistort_left(
+                handle.last_l.to(torch.float32)))
+            if self._try_relocalize(pyr_last, handle.last_r,
+                                    handle.timestamps[K - 1]):
+                self.last_pyr = pyr_last
+            else:
+                self._warn(f"relocalization failed at frame "
+                           f"{self.frame_id}; still LOST")
         return T_wc_k
 
+    def _poll_loopclosing(self):
+        if self.loopclosing is not None:
+            for ev in self.loopclosing.poll(self):
+                self._count_event(ev)
+
     def finish(self):
-        """Flush deferred work at sequence end. The JAX package flushes
-        deferred loop-closing candidates here; without a loop closer there
-        is none, so this returns at once. Callers invoke it after the last
-        collect_chunk all the same, as the JAX package's bench.py and
+        """Flush deferred work at sequence end: the loop-closing candidates
+        the last collect_chunk deferred are verified here. Call it after
+        the last collect_chunk, as the JAX package's bench.py and
         scripts/run_kitti.py do."""
+        self._poll_loopclosing()
+
+    # ------------------------------------------------------------------
+    def _try_relocalize(self, pyr_l: fe.Pyr, right, timestamp) -> bool:
+        """Relocalize a LOST frame: a PnP fix against the keyframe database
+        (loopclosing.relocalize on fresh detections), then a keyframe at
+        the recovered pose (stereo match and triangulation as at init, the
+        init detection budget), with no odometry edge across the gap, local
+        BA when the backend is on, and the keyframe's loop ingest."""
+        f = self.frontend
+        det = f.detect_features(pyr_l.levels[0])
+        fix = self.loopclosing.relocalize(pyr_l, det.xy, det.valid)
+        if fix is None:
+            return False
+        T_reloc, _ = fix
+        pyr_r = f._build_pyramid(f._undistort_right(self._pad(right)))
+        feat, m, kf_slot, kf_gid, n_created, _ = f._keyframe_step(
+            pyr_l, pyr_r, fe.empty_feat_state(self.s.max_features,
+                                              self.device),
+            T_reloc, self.map, budget=self.s.n_init_features)
+        if n_created < self.s.min_init_landmarks:
+            return False            # too little structure to resume
+        self.feat, self.map, self.T_cw = feat, m, T_reloc
+        self.rel_motion = se3.identity(device=self.device)
+        self.status = fe.TRACKING_GOOD
+        self.stats["n_relocalizations"] = \
+            self.stats.get("n_relocalizations", 0) + 1
+        self._record_keyframe_at(kf_gid, timestamp, T_reloc.cpu().numpy(),
+                                 self.frame_id, odometry_edge=False)
+        if self.enable_backend:
+            res = ba.local_ba(mapmod.ba_problem_from_map(self.map), f._fx,
+                              f._fy, f._cx, f._cy, f._baseline)
+            self.map = mapmod.apply_ba_result(self.map, res.kf_T_cw,
+                                              res.lm_pos, res.obs_valid)
+            self.T_cw = self.map.kf_pose[kf_slot]
+            self.stats["n_ba"] += 1
+            self._refresh_keyframe_records()
+        self._count_event(self.loopclosing.process_keyframe(
+            self, kf_gid, pyr_l, self.feat, self.map, self.T_cw))
+        return True
 
     def _record_keyframe_at(self, kf_gid: int, timestamp: float,
                             T_cw: np.ndarray, frame_id: int,
@@ -378,6 +563,39 @@ class System:
                     rec["T_cw"] = kf_pose[i]
 
     # ------------------------------------------------------------------
+    # loop-closing hooks (called by loopclosing.LoopClosing)
+    def _warn(self, msg: str):
+        """Append to the stats warnings channel (bounded at 1000)."""
+        w = self.stats.setdefault("warnings", [])
+        if len(w) < 1000:
+            w.append(msg)
+
+    def apply_loop_correction(self, loopclosing, corrected_map, C,
+                              relink=None):
+        """Install the rigidly re-anchored, fused active map and move the
+        current pose by the same right-multiplied C (reference
+        CorrectActivateKeyframeAndMappoint, loopclosing.cpp:378-456).
+
+        `C` is already expressed in the live gauge (_complete_loop). On the
+        per-frame path this makes T_cw the corrected keyframe pose. C is
+        recorded in _gauge_events, so collect_chunk re-gauges a chunk that
+        was in flight. `relink` = (slot_remap, pre-fusion lm_gid,
+        post-fusion lm_gid): the live features follow their fused
+        landmarks."""
+        self.map = corrected_map
+        if relink is not None:
+            self.feat = loopclosing.remap_feat(self.feat, *relink)
+        C = np.asarray(C, np.float32)
+        self.T_cw = se3.compose(self.T_cw, torch.as_tensor(
+            C, device=self.device))
+        self._gauge_events.append(C)
+        self._refresh_keyframe_records()
+
+    def on_pose_graph_updated(self):
+        """PGO rewrote the host keyframe records; the active window was
+        held fixed (reference loopclosing.cpp:488-500), so there is nothing
+        to sync."""
+
     def pose_of_gid(self, gid: int) -> np.ndarray:
         """Current T_cw of a keyframe by global id (host records)."""
         rec = self._rec_by_gid.get(gid)

@@ -685,3 +685,165 @@ def test_popcount_and_words_of_card_against_cpu():
     torch.testing.assert_close(
         bow.transform(vocab.to(dev), a.to(dev), valid.to(dev), 3).cpu(),
         bow.transform(vocab, a, valid, 3), atol=1e-6, rtol=0)
+
+
+# ----------------------------------------------------------------------
+# the LoopClosing class: match, fusion and ingest, card against CPU
+# ----------------------------------------------------------------------
+
+def _lc_settings():
+    s = Settings()
+    s.max_features, s.loop_desc_scales, s.max_keyframes_db = 96, 2, 16
+    s.max_landmarks, s.max_window, s.vocab_k, s.vocab_levels = 256, 4, 4, 2
+    return s
+
+
+def _lc_pair(dev):
+    from ssvio_tpu_torch.loopclosing import LoopClosing
+    s = _lc_settings()
+    return (LoopClosing(s, 320.0, 320.0, 160.0, 64.0, device=dev),
+            LoopClosing(s, 320.0, 320.0, 160.0, 64.0, device="cpu"))
+
+
+def _i32(rng, shape):
+    return torch.from_numpy(rng.integers(0, 2 ** 32, shape, dtype=np.uint32)
+                            .view(np.int32))
+
+
+def _clustered(rng, rows, n):
+    """[rows, n, 8] int32 descriptors, each row's spread around a centre
+    of its own (10% of the bits flipped): BoW tells the rows apart."""
+    bits = (rng.random((rows, n, 8, 32)) < 0.1).astype(np.uint32)
+    d = rng.integers(0, 2 ** 32, (rows, 1, 8), dtype=np.uint32) ^ (
+        bits << np.arange(32, dtype=np.uint32)).sum(-1, dtype=np.uint32)
+    return torch.from_numpy(d.view(np.int32))
+
+
+@pytest.mark.parametrize("gate", [0, 64])
+def test_loopclosing_match_card_against_cpu(gate):
+    """LoopClosing._match_impl on the card equals the CPU's (best match,
+    distance, mutual/threshold mask), with many equal distances."""
+    dev = _device()
+    lc_g, lc_c = _lc_pair(dev)
+    S, F = lc_c.S, lc_c.F
+    rng = np.random.default_rng(231)
+    cur = _i32(rng, (S * F, 8))
+    loop = cur.reshape(S, F, 8)[:, torch.from_numpy(rng.permutation(F))]
+    loop = loop.reshape(S * F, 8) ^ (_i32(rng, (S * F, 8))
+                                     & _i32(rng, (S * F, 8))
+                                     & _i32(rng, (S * F, 8)))
+    vc = torch.from_numpy(rng.random(S * F) < 0.85)
+    vl = torch.from_numpy(rng.random(S * F) < 0.85)
+    out_c = lc_c._match_impl(cur, vc, loop, vl, gate)
+    out_g = lc_g._match_impl(cur.to(dev), vc.to(dev), loop.to(dev),
+                             vl.to(dev), gate)
+    for g, c in zip(out_g, out_c):
+        assert torch.equal(g.cpu(), c)
+    assert int(out_c[2].sum()) > 10
+
+
+def test_loopclosing_fuse_card_against_cpu():
+    """_fuse_impl (merges and adoptions) and remap_feat on the card equal
+    the CPU's exactly (they only gather, select and copy)."""
+    from ssvio_tpu_torch import map as mapmod
+    from ssvio_tpu_torch.loopclosing import LoopClosing
+    dev = _device()
+    rng = np.random.default_rng(233)
+    W, M, F = 8, 64, 32
+    gids = rng.permutation(1000)[:M].astype(np.int32)
+    valid = rng.random(M) < 0.75
+    m = mapmod.empty_map(W, M)._replace(
+        lm_pos=torch.from_numpy(rng.normal(0, 5, (M, 3)).astype(np.float32)),
+        lm_valid=torch.from_numpy(valid), lm_gid=torch.from_numpy(gids),
+        lm_first_kf=torch.from_numpy(rng.integers(0, 20, M)
+                                     .astype(np.int32)),
+        obs_uv=torch.from_numpy(rng.uniform(0, 300, (M, W, 2, 2))
+                                .astype(np.float32)),
+        obs_valid=torch.from_numpy(rng.random((M, W, 2)) < 0.3))
+    slots = rng.permutation(M)[:F].astype(np.int32)
+    f_gid = gids[slots].copy()
+    f_gid[rng.random(F) < 0.1] += 1                     # stale links
+    feat = fe.empty_feat_state(F)._replace(
+        lm_slot=torch.from_numpy(slots), lm_gid=torch.from_numpy(f_gid),
+        valid=torch.from_numpy(rng.random(F) < 0.9))
+    kind = rng.integers(0, 3, F)
+    loop_gid = np.where(kind == 0, rng.permutation(gids[valid])[:F],
+                        np.where(kind == 1, 2000 + np.arange(F), -1))
+    args = (torch.from_numpy(rng.permutation(F).astype(np.int32)),
+            torch.from_numpy(rng.random(F) < 0.8),
+            torch.from_numpy(rng.normal(0, 5, (F, 3)).astype(np.float32)),
+            torch.from_numpy(loop_gid.astype(np.int32)),
+            torch.from_numpy(rng.random(F) < 0.9))
+    out_c = LoopClosing._fuse_impl(m, feat, *args, 42)
+    out_g = LoopClosing._fuse_impl(
+        mapmod.MapState(*[t.to(dev) for t in m]),
+        fe.FeatState(*[t.to(dev) for t in feat]),
+        *[a.to(dev) for a in args], 42)
+    for g, c in zip(out_g[0], out_c[0]):
+        assert torch.equal(g.cpu(), c)
+    for g, c in zip(out_g[1:], out_c[1:]):
+        assert torch.equal(g.cpu(), c)
+    assert int(out_c[3]) >= 3 and int(out_c[4]) >= 3
+    f_c = LoopClosing.remap_feat(feat, out_c[1], out_c[2], out_c[0].lm_gid)
+    f_g = LoopClosing.remap_feat(fe.FeatState(*[t.to(dev) for t in feat]),
+                                 out_g[1], out_g[2], out_g[0].lm_gid)
+    for g, c in zip(f_g, f_c):
+        assert torch.equal(g.cpu(), c)
+
+
+def test_loopclosing_ingest_card_against_cpu():
+    """The scoring ingest of a group of 3 keyframes (store, snapshot
+    refresh, BoW transform, scores under the age gate) on the card: the
+    database rows and the best rows equal the CPU's, BoW vectors and
+    scores within 1e-6."""
+    from ssvio_tpu_torch.loopclosing import LoopClosing
+    dev = _device()
+    lc_g, lc_c = _lc_pair(dev)
+    rng = np.random.default_rng(237)
+    cap, FS, F, M, B, n0 = lc_c.cap, lc_c.S * lc_c.F, lc_c.F, 256, 3, 5
+    db = [_clustered(rng, cap, FS),
+          torch.from_numpy(rng.random((cap, FS)) < 0.6),
+          torch.from_numpy(rng.normal(0, 50, (cap, F, 2)).astype(np.float32)),
+          torch.from_numpy(rng.normal(0, 5, (cap, F, 3)).astype(np.float32)),
+          torch.from_numpy(rng.random((cap, F)) < 0.5),
+          torch.from_numpy(rng.integers(-1, 300, (cap, F)).astype(np.int32))]
+    docs = [db[0][i][db[1][i]].numpy().view(np.uint32) for i in range(n0)]
+    vocab = bow.train(docs, k=4, levels=2, seed=7)
+    bow_db = torch.zeros((cap, vocab.n_words))
+    for i in range(n0):
+        bow_db[i] = bow.transform(vocab, db[0][i], db[1][i], 2)
+    gid_dev = torch.full((cap,), -1, dtype=torch.int32)
+    gid_dev[:n0] = torch.arange(n0, dtype=torch.int32) * 3 + 1
+    m_gid = rng.integers(0, 300, M).astype(np.int32)
+    slot = rng.integers(-1, M, (B, F)).astype(np.int32)
+    group = [_clustered(rng, B, FS),
+             torch.from_numpy(rng.random((B, FS)) < 0.6),
+             torch.from_numpy(rng.uniform(0, 300, (B, F, 2))
+                              .astype(np.float32)),
+             torch.from_numpy(rng.random((B, F)) < 0.8),
+             torch.from_numpy(slot),
+             torch.from_numpy(np.where(slot >= 0, m_gid[np.clip(slot, 0,
+                                                                M - 1)], -1)
+                              .astype(np.int32)),
+             torch.from_numpy(rng.normal(0, 5, (M, 3)).astype(np.float32)),
+             torch.from_numpy(m_gid), torch.from_numpy(rng.random(M) < 0.8)]
+    group[0][0], group[1][0] = db[0][2], db[1][2]       # a stored row's copy
+    gids = torch.tensor([20, 21, 25], dtype=torch.int32)
+    rr = torch.tensor([1, 3, 4, -1], dtype=torch.int32)
+
+    def run(d):
+        return LoopClosing._ingest_impl_v(      # it writes into the db
+            *[t.clone().to(d) for t in db], bow_db.clone().to(d),
+            gid_dev.clone().to(d), n0,
+            *[t.to(d) for t in group], vocab.to(d), gids.to(d), rr.to(d),
+            min_age=3, levels=2)
+
+    out_c, out_g = run("cpu"), run(dev)
+    for g, c in zip(out_g[:6] + (out_g[7],), out_c[:6] + (out_c[7],)):
+        assert torch.equal(g.cpu(), c)
+    torch.testing.assert_close(out_g[6].cpu(), out_c[6], atol=1e-6, rtol=0)
+    assert out_g[8] == out_c[8] == n0 + B
+    assert torch.equal(out_g[9][0].cpu(), out_c[9][0])
+    torch.testing.assert_close(out_g[9][1].cpu(), out_c[9][1], atol=1e-6,
+                               rtol=0)
+    assert int(out_c[9][0, 0]) == 2 and float(out_c[9][1, 0]) > 0.99

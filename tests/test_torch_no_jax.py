@@ -1,6 +1,8 @@
 """The port stands alone: importing `ssvio_tpu_torch` (every module) and
 chip_smoke.py's module-level code needs neither jax, PyYAML nor the JAX
-package. The machine with the GPU has none of them.
+package, and neither does building the loop-closing System (the engine's
+descriptor branch, the LoopClosing class, interop's loop_closing). The
+machine with the GPU has none of them.
 
 Runs in a fresh interpreter in which `jax`, `jaxlib`, `yaml` and
 `ssvio_tpu` are blocked: any import of them raises ImportError.
@@ -39,6 +41,33 @@ def test_port_and_chip_smoke_import_without_jax_or_yaml():
     n_mods = int(line.split()[1])
     assert n_mods >= 15, line                   # every port module imported
     assert line.endswith("LOADED []"), line
+
+
+_CHILD_LOOP = r"""
+import sys
+for name in ("jax", "jaxlib", "yaml", "ssvio_tpu"):
+    sys.modules[name] = None
+from ssvio_tpu_torch import interop, loopclosing
+from ssvio_tpu_torch.config import Settings, bench_loop_settings
+from ssvio_tpu_torch.system import System
+s = bench_loop_settings()
+s.max_keyframes_db = 4
+sys_ = System(s, device="cpu")
+lc = sys_.loopclosing
+assert isinstance(lc, loopclosing.LoopClosing) and sys_._engine.loop_desc
+assert s.loop_db_min_size == 24 and Settings().loop_closing_open
+assert callable(interop.loop_closing) and callable(
+    sys_.frontend.detect_features)
+print("LOOP SYSTEM", lc.cap, lc.desc_db.shape[1])
+"""
+
+
+def test_loop_closing_system_builds_without_jax():
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", _CHILD_LOOP], cwd=REPO,
+                         env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "LOOP SYSTEM 4 4096" in out.stdout, out.stdout
 
 
 def test_chip_smoke_refuses_to_run_without_a_gpu():

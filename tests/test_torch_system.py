@@ -93,8 +93,9 @@ def test_slice_tum_export_and_unported_entry_points(runs, tmp_path):
         with pytest.raises(ValueError, match="empty chunk"):
             getattr(t, name)([], [])
     s = interop.settings(small_settings())
-    with pytest.raises(NotImplementedError, match="#12"):
-        SystemT(s, enable_loop_closing=True, device="cpu")
+    # loop closing is ported (tests/test_torch_loop_system.py): it builds
+    assert SystemT(s, enable_loop_closing=True,
+                   device="cpu").loopclosing is not None
     with pytest.raises(NotImplementedError, match="#14"):
         SystemT(s, enable_loop_closing=False, mesh=object(),
                 device="cpu")
