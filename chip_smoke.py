@@ -105,16 +105,45 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    ways, ingest ms per keyframe, ms per verification and per PGO run, the
    events' ranges, ATE and end drift, beside the card's name and power
    limit.
-9. prints the kernel table as one JSON line (with each kernel's bound,
+9. the KITTI driver (scripts/torch_run_kitti.py; run before phase 6
+   too) as users run it with no config: the System its build_system makes,
+   Settings() (the KITTI-00 defaults, loop closing on). Phase 4's endless
+   corridor cannot initialise it (Settings()' init gate wants 200
+   landmarks of 300 detections within 60 baselines, 32 m; the corridor's
+   vanishing point leaves ~160), so the scene is phase 8's circle (the
+   JAX loop bench's, seed 11, noise 2.0) in a room closed at z = -10 and
+   30 m (DRIVER_WORLD). DRIVER_FRAMES frames of it rendered on the card at
+   1241x376 as uint8, written in the KITTI layout (kitti.write_sequence: times.txt,
+   image_0/ and image_1/ PNGs, poses.txt) under build/, and decoded back
+   through the native prefetching loader (built from the checkout's
+   ssvio_tpu_torch/native/dataloader.cpp): every frame must equal the
+   rendered one bit for bit; prints decode ms a pair on one thread and the
+   loader's pairs a second. Then the driver twice, with --gt_poses and
+   --frames_only_traj: per frame (with --profile_dir) and with --chunk
+   DRIVER_CHUNK. Checks: no LOST frame, keyframe ATE under ATE_MAX_M in
+   both, the two TUM files within CHUNK_VS_STEP_M, kernel #1's launches
+   as the statuses imply and every other kernel 0 (#2 is not taken at
+   1241x376); the chrome trace of frames 20..40 exists and holds as many
+   kernel #1 launches as lk_cuda.LAUNCHES counted over those frames. Then
+   a checkpoint with loop closing off (Settings()): CKPT_FRAMES frames, save_checkpoint,
+   load_checkpoint into a fresh System, CKPT_FRAMES more, against the
+   same System run on: equal statuses and keyframe counts, positions
+   within CKPT_TOL_M. Prints ms a frame of each pass and the phase's wall
+   time, beside the card's name and power limit.
+10. prints the kernel table as one JSON line (with each kernel's bound,
    bound_ms: the plane pixels the level needs over the memory rate, or
    its operations over the peak rate, BOUND_*), then the result line.
 """
 
+import contextlib
 import dataclasses
 import functools
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -130,8 +159,15 @@ from ssvio_tpu_torch.dataio import synthetic, synthetic_torch
 from ssvio_tpu_torch.eval import ate
 from ssvio_tpu_torch.ops import (_nvcc, bow, fast, lk, lk_cuda, lk_patch_cuda,
                                  orb, pgo, pnp, pyramid, sampling, se3)
+from ssvio_tpu_torch import native
+from ssvio_tpu_torch.dataio import kitti as kitti_io
 from ssvio_tpu_torch.ops import lk_variants_cuda as lkv
 from ssvio_tpu_torch.system import System
+from ssvio_tpu_torch.utils import checkpoint, profiling
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(REPO, "scripts"))
+import torch_run_kitti as driver  # noqa: E402
 
 # Kernel vs plain version, positions (px), on every live track that
 # converged before the iteration cap. Both run the same float32 steps;
@@ -221,6 +257,14 @@ LOOP8_DB_ROWS = 16        # the database's rows at the start (it doubles)
 RELOC_BLANKS = 3          # tests/test_relocalization.py's
 RELOC_FRAME = 40          # a first-lap view
 RELOC_TOL_M = 0.5         # tests/test_relocalization.py's
+# Phase 9: the driver at Settings() on phase 8's circle in a closed room
+DRIVER_WORLD = dict(LOOP8_WORLD, end_z=(-10.0, 30.0))
+DRIVER_FRAMES = 128
+DRIVER_CHUNK = 32
+CKPT_FRAMES = 64          # frames before the checkpoint, and after it
+CKPT_TOL_M = CHUNK_VS_STEP_M   # a resumed run is the same ops on the same
+                               # state; BA's atomics may reorder sums (the
+                               # JAX package's test allows 0.05 m)
 KERNELS = {
     "lk_level": dict(source="ssvio_tpu_torch/csrc/lk_level.cu",
                      replaces="ssvio_tpu/ops/lk_pallas.py:344"),
@@ -1587,6 +1631,235 @@ def phase_loop_system(dev, card: str) -> dict:
     return out
 
 
+def _record_statuses(sys_, log):
+    """Wrap sys_.run_step and sys_.collect_chunk (instance attributes from
+    now on) to append the status after each frame to log['after'] in frame
+    order, and the milliseconds of each run_step call to log['step_ms']."""
+    run_step, collect = sys_.run_step, sys_.collect_chunk
+
+    def step(*a, **k):
+        t0 = time.perf_counter()
+        out = run_step(*a, **k)
+        log["step_ms"].append(1e3 * (time.perf_counter() - t0))
+        log["after"].append(sys_.status)
+        return out
+
+    def coll(handle):
+        out = collect(handle)
+        log["after"] += [int(v) for v in handle.outs.status]
+        return out
+    sys_.run_step, sys_.collect_chunk = step, coll
+
+
+def _trace_kernel1(path) -> int:
+    """Kernel #1's launches in a chrome trace (its kernel events named
+    level_kernel; #3, which is #1's instantiation, does not run here)."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    return sum(1 for e in events if e.get("cat", "").lower() == "kernel"
+               and "level_kernel" in e.get("name", ""))
+
+
+def _driver_pass(tag, seq, out, dev, *flags):
+    """One run of the driver (torch_run_kitti.run) on the System its
+    build_system makes with no config; returns its result with the
+    statuses, launches and the per-frame run_step ms."""
+    log = dict(after=[], step_ms=[])
+    args = driver.parse_args(
+        ["--kitti_dataset_path", seq, "--device", str(dev),
+         "--gt_poses", os.path.join(seq, "poses.txt"), "--frames_only_traj",
+         "--save_traj", os.path.join(out, f"{tag}.tum"), *flags])
+    sys_ = driver.build_system(args)
+    if sys_.s != Settings() or sys_.device != dev or sys_.loopclosing is None:
+        raise AssertionError(f"driver [{tag}]: no config must give "
+                             f"Settings() with loop closing on {dev}")
+    _record_statuses(sys_, log)
+    _zero_launches()
+    res = driver.run(sys_, args)
+    res.update(launches=_launches(), sys=sys_, **log)
+    return res
+
+
+def _check_driver_pass(tag, res):
+    after = res["after"]
+    imp = _implied_launches([fe.INITING] + after[:-1], after)
+    n_lost = sum(a == fe.LOST for a in after)
+    if len(after) != DRIVER_FRAMES or n_lost:
+        raise AssertionError(f"driver [{tag}]: {len(after)} frames, "
+                             f"{n_lost} LOST")
+    if res["launches"] != _expect(lk_level=imp["level0_on_level"]["lk_level"]):
+        raise AssertionError(f"driver [{tag}]: kernel launches "
+                             f"{res['launches']} != {imp['level0_on_level']} "
+                             "implied by the statuses")
+    if res["ate"] is None or not res["ate"]["rmse"] < ATE_MAX_M:
+        raise AssertionError(f"driver [{tag}]: keyframe ATE {res['ate']} "
+                             f"(>= {ATE_MAX_M} m, or no keyframe)")
+    return imp
+
+
+def phase_driver(dev, card: str) -> dict:
+    """Phase 9 (module docstring)."""
+    t_phase = time.perf_counter()
+    s = Settings()
+    cam = s.cam_left
+    print(f"the KITTI driver [Settings(), no config]: {DRIVER_FRAMES} "
+          f"frames of phase 8's circle in a closed room, per frame and in "
+          f"chunks of {DRIVER_CHUNK}")
+    poses = synthetic.loop_trajectory(
+        LOOP8_LAP, radius=LOOP8_RADIUS_M)[:DRIVER_FRAMES]
+    L, R = synthetic_torch.render_stereo_sequence_device(
+        synthetic.SyntheticWorld(**DRIVER_WORLD), poses, cam.fx, cam.fy,
+        cam.cx, cam.cy, s.baseline, s.image_width, s.image_height,
+        noise_std=LOOP8_NOISE, device=dev)
+    Lh, Rh = L.cpu().numpy(), R.cpu().numpy()
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="chip_smoke_driver_",
+                            dir=os.path.join(REPO, "build"))
+    try:
+        seq = os.path.join(work, "seq")
+        t0 = time.perf_counter()
+        kitti_io.write_sequence(seq, Lh, Rh,
+                             [i / s.fps for i in range(DRIVER_FRAMES)], poses)
+        write_s = time.perf_counter() - t0
+        out = _decode_check(seq, Lh, Rh)
+        out["write_s"] = write_s
+
+        # the driver, per frame (profiled over frames 20..40) and chunked
+        counted = []
+        real_trace = profiling.trace
+
+        @contextlib.contextmanager
+        def trace_counting(log_dir):
+            with real_trace(log_dir) as prof:
+                n0 = lk_cuda.LAUNCHES
+                yield prof
+                torch.cuda.synchronize()
+                counted.append(lk_cuda.LAUNCHES - n0)
+        prof_dir = os.path.join(work, "profile")
+        profiling.trace = trace_counting
+        try:
+            step = _driver_pass("per_frame", seq, work, dev,
+                                "--profile_dir", prof_dir)
+        finally:
+            profiling.trace = real_trace
+        chunk = _driver_pass("chunk", seq, work, dev,
+                             "--chunk", str(DRIVER_CHUNK))
+        traced = _trace_kernel1(os.path.join(prof_dir, profiling.TRACE_FILE))
+        a = np.loadtxt(os.path.join(work, "per_frame.tum"))
+        b = np.loadtxt(os.path.join(work, "chunk.tum"))
+        d = float(np.abs(a[:, 1:4] - b[:, 1:4]).max())
+        lo, hi = driver.PROFILE_FRAMES
+        unprofiled = [m for i, m in enumerate(step["step_ms"])
+                      if not lo <= i <= hi]
+        for tag, res in (("per_frame", step), ("chunk", chunk)):
+            imp = _check_driver_pass(tag, res)
+            sys_ = res["sys"]
+            out[tag] = dict(
+                frames=res["frames"], wall_s=res["wall_s"],
+                ms_per_frame=1e3 * res["wall_s"] / res["frames"],
+                n_keyframes=sys_.stats["n_keyframes"],
+                n_ba=sys_.stats["n_ba"], n_loops=sys_.stats["n_loops"],
+                kf_ate_m=res["ate"]["rmse"], launches=res["launches"],
+                implied=imp["level0_on_level"])
+        out["per_frame"].update(
+            median_ms_per_frame_unprofiled=float(np.median(unprofiled)),
+            profiled_frames=[lo, hi], trace_kernel1=traced,
+            counter_kernel1=counted)
+        out["tum_max_diff_m"] = d
+        print(f"  [{card}]")
+        for tag in ("per_frame", "chunk"):
+            print(f"  driver [{tag}]: " + json.dumps(out[tag]))
+        print(f"  per frame vs chunk: TUM positions within {d:.3g} m; "
+              f"profiler trace of frames {lo}..{hi}: {traced} kernel #1 "
+              f"launches, the counter {counted}")
+        if a.shape != (DRIVER_FRAMES, 8) or b.shape != a.shape:
+            raise AssertionError(f"driver: TUM shapes {a.shape} {b.shape}")
+        if not d <= CHUNK_VS_STEP_M:
+            raise AssertionError(f"driver: per frame vs chunk {d} m > "
+                                 f"{CHUNK_VS_STEP_M} m")
+        if counted != [traced] or traced <= 0:
+            raise AssertionError(f"driver: the trace holds {traced} kernel "
+                                 f"#1 launches, the counter {counted}")
+
+        out["checkpoint"] = _checkpoint_check(s, L, R, work, dev)
+        out["launches"] = {name: step["launches"][name]
+                           + chunk["launches"][name]
+                           + out["checkpoint"]["launches"][name]
+                           for name in _launches()}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"  phase 9: {out['wall_s']:.1f} s")
+    return out
+
+
+def _decode_check(seq, Lh, Rh) -> dict:
+    """The written PNGs through the native loader: every pair equal to the
+    rendered uint8 bit for bit. Returns decode ms a pair (one thread, the
+    caller's) and the prefetching loader's pairs a second."""
+    t0 = time.perf_counter()
+    native.load()
+    build_s = time.perf_counter() - t0
+    left, right, ts = kitti_io.load_image_paths_and_timestamps(seq)
+    t0 = time.perf_counter()
+    for lp, rp in zip(left[:16], right[:16]):
+        native.decode_gray(lp), native.decode_gray(rp)
+    one_ms = 1e3 * (time.perf_counter() - t0) / 16
+    t0 = time.perf_counter()
+    pairs = list(kitti_io.prefetching_reader(left, right))
+    loader_s = time.perf_counter() - t0
+    bad = [i for i, (a, b) in enumerate(pairs)
+           if not (np.array_equal(a, Lh[i]) and np.array_equal(b, Rh[i]))]
+    res = dict(library=str(native.library_path()), build_s=build_s,
+               pairs=len(pairs), decode_ms_per_pair=one_ms,
+               loader_pairs_per_s=len(pairs) / loader_s)
+    print("  decode: " + json.dumps(res))
+    if len(pairs) != len(Lh) or bad or len(ts) != len(Lh):
+        raise AssertionError(f"decode: {len(pairs)} pairs of {len(Lh)}, "
+                             f"frames {bad[:8]} differ from the rendered ones")
+    return dict(decode=res)
+
+
+def _checkpoint_check(s, L, R, work, dev) -> dict:
+    """CKPT_FRAMES frames, a checkpoint, a fresh System resumed from it for
+    CKPT_FRAMES more, against the first System run on."""
+    cont = System(s, enable_loop_closing=False, device=dev)
+    ts = [i / s.fps for i in range(2 * CKPT_FRAMES)]
+    _zero_launches()
+    for i in range(CKPT_FRAMES):
+        cont.run_step(L[i], R[i], ts[i])
+    path = os.path.join(work, "state.npz")
+    t0 = time.perf_counter()
+    checkpoint.save_checkpoint(cont, path)
+    save_ms = 1e3 * (time.perf_counter() - t0)
+    resumed = System(s, enable_loop_closing=False, device=dev)
+    t0 = time.perf_counter()
+    checkpoint.load_checkpoint(resumed, path)
+    load_ms = 1e3 * (time.perf_counter() - t0)
+    after_c, after_r = [], []
+    for i in range(CKPT_FRAMES, 2 * CKPT_FRAMES):
+        cont.run_step(L[i], R[i], ts[i])
+        after_c.append(cont.status)
+        resumed.run_step(L[i], R[i], ts[i])
+        after_r.append(resumed.status)
+    _, tc = cont.frame_trajectory()
+    _, tr = resumed.frame_trajectory()
+    d = float(np.abs(tc[:, :, 3] - tr[:, :, 3]).max())
+    res = dict(frames=[CKPT_FRAMES, CKPT_FRAMES], save_ms=save_ms,
+               load_ms=load_ms, npz_mb=os.path.getsize(path) / 2 ** 20,
+               n_keyframes=[cont.stats["n_keyframes"],
+                            resumed.stats["n_keyframes"]],
+               max_position_diff_m=d, tol_m=CKPT_TOL_M,
+               launches=_launches())
+    print("  checkpoint: " + json.dumps(res))
+    if (after_c != after_r or fe.LOST in after_c
+            or res["n_keyframes"][0] != res["n_keyframes"][1]
+            or tc.shape != tr.shape or not d <= CKPT_TOL_M):
+        raise AssertionError(f"checkpoint: the resumed run differs from the "
+                             f"continuous one: {res}")
+    return res
+
+
 def main() -> None:
     t_start = time.perf_counter()
     card = phase_device()
@@ -1604,6 +1877,7 @@ def main() -> None:
         chunk = phase_chunks(robotcar, dev)
         place = phase_place_recognition(kitti, dev, card)
         loop8 = phase_loop_system(dev, card)
+        drive = phase_driver(dev, card)
         flavours = phase_flavours(kitti, dev, frames, t_start)
     table = []
     for name, meta in KERNELS.items():
@@ -1615,6 +1889,7 @@ def main() -> None:
             name=name, route="cuda", **meta,
             launches=(step["launches"][name] + chunk["launches"][name]
                       + place["launches"][name] + loop8["launches"][name]
+                      + drive["launches"][name]
                       + sum(f["launches"][name] for f in flavours.values())),
             max_abs_err=max(r["max_abs_err"] for r in mine),
             ms=big["ms"], plain_ms=big["plain_ms"], bound_ms=big["bound_ms"],

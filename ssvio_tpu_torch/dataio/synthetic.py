@@ -68,18 +68,28 @@ class BlockNoiseTexture:
 
 class SyntheticWorld:
     """Ground plane at y=+h, two walls at x=+/-w (camera convention: x right,
-    y DOWN, z forward, like KITTI)."""
+    y DOWN, z forward, like KITTI).
+
+    `end_z=(z_back, z_front)` closes the corridor into a room with two more
+    walls at z=z_back and z=z_front (textures seed+4, seed+5): no ray then
+    runs to the vanishing point of an endless corridor. Not in the JAX
+    package's world; None (the default) renders it exactly."""
 
     def __init__(self, seed: int = 0, ground_y: float = 1.6, wall_x: float = 8.0,
-                 ceiling_y: float = -6.0):
+                 ceiling_y: float = -6.0,
+                 end_z: Tuple[float, float] | None = None):
         self.seed = seed
         self.ground_y = ground_y
         self.wall_x = wall_x
         self.ceiling_y = ceiling_y
+        self.end_z = end_z
         self.tex_ground = BlockNoiseTexture(seed)
         self.tex_wall_l = BlockNoiseTexture(seed + 1)
         self.tex_wall_r = BlockNoiseTexture(seed + 2)
         self.tex_ceil = BlockNoiseTexture(seed + 3)
+        if end_z is not None:
+            self.tex_back = BlockNoiseTexture(seed + 4)
+            self.tex_front = BlockNoiseTexture(seed + 5)
 
     def render(self, T_wc: np.ndarray, fx: float, fy: float, cx: float, cy: float,
                width: int, height: int, supersample: int = 2) -> np.ndarray:
@@ -121,6 +131,11 @@ class SyntheticWorld:
             shade(d_w[..., 0] < -1e-9, tl, self.tex_wall_l, 2, 1)
             tr = (self.wall_x - o[0]) / d_w[..., 0]
             shade(d_w[..., 0] > 1e-9, tr, self.tex_wall_r, 2, 1)
+            if self.end_z is not None:
+                tb = (self.end_z[0] - o[2]) / d_w[..., 2]
+                shade(d_w[..., 2] < -1e-9, tb, self.tex_back, 0, 1)
+                tf = (self.end_z[1] - o[2]) / d_w[..., 2]
+                shade(d_w[..., 2] > 1e-9, tf, self.tex_front, 0, 1)
         return img
 
 

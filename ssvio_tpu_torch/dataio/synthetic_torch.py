@@ -21,21 +21,25 @@ from ssvio_tpu_torch.dataio import synthetic as syn
 
 class WorldArrays(NamedTuple):
     """SyntheticWorld's texture tables + plane geometry as tensors."""
-    blocks: torch.Tensor    # [4, T, T] f32 — ground, wall_l, wall_r, ceiling
-    smooth: torch.Tensor    # [4, T, T] f32
+    blocks: torch.Tensor    # [P, T, T] f32 — ground, wall_l, wall_r,
+    smooth: torch.Tensor    # ceiling (+ back, front with end_z); [P, T, T]
     ground_y: float
     wall_x: float
     ceiling_y: float
+    end_z: tuple | None
 
 
 def world_arrays(world: syn.SyntheticWorld, device=None) -> WorldArrays:
     texs = [world.tex_ground, world.tex_wall_l, world.tex_wall_r,
             world.tex_ceil]
+    if world.end_z is not None:
+        texs += [world.tex_back, world.tex_front]
     return WorldArrays(
         blocks=torch.from_numpy(np.stack([t.blocks for t in texs])).to(device),
         smooth=torch.from_numpy(np.stack([t.smooth for t in texs])).to(device),
         ground_y=float(world.ground_y), wall_x=float(world.wall_x),
-        ceiling_y=float(world.ceiling_y))
+        ceiling_y=float(world.ceiling_y),
+        end_z=None if world.end_z is None else tuple(map(float, world.end_z)))
 
 
 def _sample_texture(blocks_flat, smooth_flat, base, u, v, t: int):
@@ -83,7 +87,7 @@ def render_one(w: WorldArrays, T_wc: torch.Tensor, fx, fy, cx, cy, width: int,
     v = torch.arange(H, dtype=torch.float32, device=dev)[:, None].expand(H, W)
     d_c = torch.stack([(u - cx) / fx, (v - cy) / fy, torch.ones_like(u)], -1)
     d_w = d_c @ R.T                                     # [H, W, 3]
-    dx, dy = d_w[..., 0], d_w[..., 1]
+    dx, dy, dz = d_w[..., 0], d_w[..., 1], d_w[..., 2]
     inf = torch.tensor(float("inf"), device=dev)
 
     def plane_t(num, den, sign):
@@ -92,18 +96,22 @@ def render_one(w: WorldArrays, T_wc: torch.Tensor, fx, fy, cx, cy, width: int,
         t = num / torch.where(ok, den, torch.ones_like(den))
         return torch.where(ok & (t > 0.05), t, inf)
 
-    ts = torch.stack([
+    ts = [
         plane_t(w.ground_y - o[1], dy, 1.0),            # ground  (tex 0)
         plane_t(-w.wall_x - o[0], dx, -1.0),            # wall_l  (tex 1)
         plane_t(w.wall_x - o[0], dx, 1.0),              # wall_r  (tex 2)
         plane_t(w.ceiling_y - o[1], dy, -1.0),          # ceiling (tex 3)
-    ])                                                  # [4, H, W]
-    tbest, best = torch.min(ts, dim=0)                  # first min wins ties
+    ]
+    if w.end_z is not None:
+        ts += [plane_t(w.end_z[0] - o[2], dz, -1.0),    # back    (tex 4)
+               plane_t(w.end_z[1] - o[2], dz, 1.0)]     # front   (tex 5)
+    tbest, best = torch.min(torch.stack(ts), dim=0)     # first min wins ties
     hit = torch.isfinite(tbest)
     p = o + torch.where(hit, tbest, torch.zeros_like(tbest))[..., None] * d_w
     wall = (best == 1) | (best == 2)
+    end = best >= 4
     pu = torch.where(wall, p[..., 2], p[..., 0])
-    pv = torch.where(wall, p[..., 1], p[..., 2])
+    pv = torch.where(wall | end, p[..., 1], p[..., 2])
     t = w.blocks.shape[-1]
     shade = _sample_texture(w.blocks.reshape(-1), w.smooth.reshape(-1),
                             best * (t * t), pu, pv, t)

@@ -66,6 +66,8 @@ class _Frame(NamedTuple):
     """One frame's outputs as `_step` leaves them: the pose, inlier count
     and features on the device, the branch results on the host."""
     T_cw: torch.Tensor
+    T_kf: torch.Tensor        # the pose a keyframe was inserted at (pre-BA)
+    img_r: Optional[torch.Tensor]  # level 0 of the right pyramid, if built
     status: int
     n_inliers: torch.Tensor
     kf_slot: int              # -1: no keyframe
@@ -148,10 +150,12 @@ class Engine:
         rel_f = out.rel_motion
         kf_slot = kf_gid = -1
         ran_ba = False
-        desc = dval = None
+        desc = dval = img_r0 = None
+        T_in = out.T_cw
         if need_kf:
             pyr_r = f._build_pyramid(
                 f._undistort_right(img_r().to(torch.float32)))
+            img_r0 = pyr_r.levels[0]
             feat_in = (fe.empty_feat_state(s.max_features, dev) if is_init
                        else out.feat)
             T_in = se3.identity(device=dev) if is_init else out.T_cw
@@ -192,8 +196,8 @@ class Engine:
         status_f = ((fe.TRACKING_GOOD if kf_ok else fe.INITING) if is_init
                     else status_t)
         c2 = EngineCarry(pyr_l, feat_f, T_f, rel_f, m_f, status_f)
-        return c2, _Frame(T_f, status_f, out.n_inliers, kf_slot, kf_gid,
-                          feat_f, ran_ba, desc, dval)
+        return c2, _Frame(T_f, T_in, img_r0, status_f, out.n_inliers,
+                          kf_slot, kf_gid, feat_f, ran_ba, desc, dval)
 
     # ------------------------------------------------------------------
     def run_chunk(self, carry: EngineCarry, imgs_l: torch.Tensor,

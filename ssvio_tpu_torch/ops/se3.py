@@ -203,3 +203,60 @@ def adjoint(T: torch.Tensor) -> torch.Tensor:
     top = torch.cat([R, hat(t) @ R], dim=-1)
     bot = torch.cat([torch.zeros_like(R), R], dim=-1)
     return torch.cat([top, bot], dim=-2)
+
+
+def normalize_rotation(T: torch.Tensor) -> torch.Tensor:
+    """Re-orthonormalize R via SVD (drift control after many composes)."""
+    R, t = rotation(T), translation(T)
+    u, _, vt = torch.linalg.svd(R)
+    det = torch.linalg.det(u @ vt)
+    d = torch.ones_like(det)
+    fix = torch.stack([d, d, det], dim=-1)
+    return make((u * fix[..., None, :]) @ vt, t)
+
+
+# ---------------------------------------------------------------------------
+# Quaternion interop (for TUM export; w-last xyzw like TUM/ROS)
+# ---------------------------------------------------------------------------
+
+def rotmat_to_quat(R: torch.Tensor) -> torch.Tensor:
+    """[..., 3, 3] -> [..., 4] quaternion (x, y, z, w), w >= 0, branch-free
+    (Shepperd's method: the best-conditioned of four candidates)."""
+    m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
+    m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
+    m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
+    tr = m00 + m11 + m22
+    # candidate squared norms, times 4
+    qw2 = 1.0 + tr
+    qx2 = 1.0 + m00 - m11 - m22
+    qy2 = 1.0 - m00 + m11 - m22
+    qz2 = 1.0 - m00 - m11 + m22
+    idx = torch.argmax(torch.stack([qx2, qy2, qz2, qw2], dim=-1), dim=-1)
+    s_w, s_x, s_y, s_z = (torch.sqrt(torch.clamp(v, min=1e-12)) * 2.0
+                          for v in (qw2, qx2, qy2, qz2))
+    q_w = torch.stack([(m21 - m12) / s_w, (m02 - m20) / s_w,
+                       (m10 - m01) / s_w, s_w / 4.0], dim=-1)
+    q_x = torch.stack([s_x / 4.0, (m01 + m10) / s_x, (m02 + m20) / s_x,
+                       (m21 - m12) / s_x], dim=-1)
+    q_y = torch.stack([(m01 + m10) / s_y, s_y / 4.0, (m12 + m21) / s_y,
+                       (m02 - m20) / s_y], dim=-1)
+    q_z = torch.stack([(m02 + m20) / s_z, (m12 + m21) / s_z, s_z / 4.0,
+                       (m10 - m01) / s_z], dim=-1)
+    stacked = torch.stack([q_x, q_y, q_z, q_w], dim=-2)  # [..., cand, comp]
+    q = torch.take_along_dim(
+        stacked, idx[..., None, None].expand(*idx.shape, 1, 4), dim=-2)[..., 0, :]
+    q = torch.where(q[..., 3:4] < 0, -q, q)
+    return q / torch.linalg.norm(q, dim=-1, keepdim=True)
+
+
+def quat_to_rotmat(q: torch.Tensor) -> torch.Tensor:
+    """[..., 4] (x, y, z, w) -> [..., 3, 3]."""
+    q = q / torch.linalg.norm(q, dim=-1, keepdim=True)
+    x, y, z, w = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    r0 = torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - w * z),
+                      2 * (x * z + w * y)], dim=-1)
+    r1 = torch.stack([2 * (x * y + w * z), 1 - 2 * (x * x + z * z),
+                      2 * (y * z - w * x)], dim=-1)
+    r2 = torch.stack([2 * (x * z - w * y), 2 * (y * z + w * x),
+                      1 - 2 * (x * x + y * y)], dim=-1)
+    return torch.stack([r0, r1, r2], dim=-2)

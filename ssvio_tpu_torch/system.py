@@ -55,8 +55,8 @@ class ChunkHandle(NamedTuple):
     n_ba: int                     # local BAs the chunk ran
     gauge_idx: int                # len(_gauge_events) at dispatch
     m: mapmod.MapState            # the map after the chunk (loop ingest)
-    last_l: Optional[torch.Tensor]  # the chunk's last images, padded, for
-    last_r: Optional[torch.Tensor]  # relocalization (loop closing on)
+    last_l: torch.Tensor          # the chunk's last images, padded, for
+    last_r: torch.Tensor          # relocalization and the viewer
 
 
 class System:
@@ -111,6 +111,9 @@ class System:
         self.rel_motion = se3.identity(device=self.device)
         self.feat = fe.empty_feat_state(self.s.max_features, self.device)
         self.last_pyr = None
+        # the latest pair for the viewer's stereo pane (viz.py): level 0 of
+        # the left pyramid and, on frames that built it, of the right one
+        self.last_stereo = None
         self.frame_id = -1
         # tracking health: the median tracked inlier count of the last 30
         # frames (run_step) or of the latest chunk, and the run's typical
@@ -204,6 +207,7 @@ class System:
             pyr_l = f._build_pyramid(f._undistort_left(self._pad(left)))
             self._try_relocalize(pyr_l, right, timestamp)
             self.last_pyr = pyr_l
+            self.last_stereo = (pyr_l.levels[0], None)
         else:
             self._step_frame(left, right, timestamp)
         T_wc = se3.inverse(self.T_cw).cpu().numpy()
@@ -215,14 +219,18 @@ class System:
         carry, fr = self._engine._step(self._carry(), self._pad(left),
                                        lambda: self._pad(right))
         self._install(carry)
+        self.last_stereo = (carry.pyr_last.levels[0], fr.img_r)
         if tracked:
             n_inl = int(fr.n_inliers)
             self._health_window = (self._health_window + [n_inl])[-30:]
             self.track_health = float(np.median(self._health_window))
             self._add_health(float(n_inl))
         if fr.kf_slot >= 0:
+            # the record and its odometry edge take the pose the keyframe
+            # was inserted at, as the JAX System's run_step does; the BA
+            # refresh below moves the record, not the edge
             self._record_keyframe_at(fr.kf_gid, timestamp,
-                                     fr.T_cw.cpu().numpy(), self.frame_id)
+                                     fr.T_kf.cpu().numpy(), self.frame_id)
         if fr.ran_ba:
             self.stats["n_ba"] += 1
             self._refresh_keyframe_records()
@@ -352,9 +360,12 @@ class System:
         carry, outs, packed, n_ba = self._engine.run_chunk(self._carry(),
                                                            imgs_l, imgs_r)
         self._install(carry)
-        last_l = last_r = None
+        # the chunk's last pair: relocalization reads it at collect, after
+        # the caller may have reused its stack, so loop closing keeps a copy;
+        # otherwise only the viewer reads it (last_stereo), from a view
+        last_l, last_r = imgs_l[K - 1], imgs_r[K - 1]
         if self.loopclosing is not None:
-            last_l, last_r = imgs_l[K - 1].clone(), imgs_r[K - 1].clone()
+            last_l, last_r = last_l.clone(), last_r.clone()
         ready = None
         if packed.is_cuda:
             host = torch.empty(packed.shape, dtype=packed.dtype,
@@ -434,6 +445,7 @@ class System:
         self._lost_since_kf = lost_since_kf
         self.stats["n_ba"] += handle.n_ba
         self._refresh_keyframe_records(window)
+        self.last_stereo = (handle.last_l, handle.last_r)
         if self.loopclosing is None:
             return T_wc_k
 

@@ -1,11 +1,13 @@
-"""The port stands alone: importing `ssvio_tpu_torch` (every module) and
-chip_smoke.py's module-level code needs neither jax, PyYAML nor the JAX
-package, and neither does building the loop-closing System (the engine's
-descriptor branch, the LoopClosing class, interop's loop_closing). The
-machine with the GPU has none of them.
+"""The port stands alone: importing `ssvio_tpu_torch` (every module),
+chip_smoke.py's module-level code and the driver scripts the card runs
+(scripts/torch_run_kitti.py, scripts/torch_longrun.py) needs neither jax,
+PyYAML, OpenCV, matplotlib nor the JAX package, and neither does building
+the loop-closing System (the engine's descriptor branch, the LoopClosing
+class, interop's loop_closing). The machine with the GPU has none of them.
 
-Runs in a fresh interpreter in which `jax`, `jaxlib`, `yaml` and
-`ssvio_tpu` are blocked: any import of them raises ImportError.
+Runs in a fresh interpreter in which `jax`, `jaxlib`, `yaml`, `cv2`,
+`matplotlib` and `ssvio_tpu` are blocked: any import of them raises
+ImportError.
 """
 
 import os
@@ -14,22 +16,28 @@ import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
+BLOCKED = '("jax", "jaxlib", "yaml", "cv2", "matplotlib", "ssvio_tpu")'
+
 _CHILD = r"""
 import importlib, importlib.util, pkgutil, sys
-for name in ("jax", "jaxlib", "yaml", "ssvio_tpu"):
+BLOCKED = %s
+for name in BLOCKED:
     sys.modules[name] = None          # import of a None entry raises
 import ssvio_tpu_torch
 mods = [m.name for m in pkgutil.walk_packages(ssvio_tpu_torch.__path__,
                                               "ssvio_tpu_torch.")]
 for m in mods:
     importlib.import_module(m)
-spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
-spec.loader.exec_module(importlib.util.module_from_spec(spec))
+for name, path in (("chip_smoke", "chip_smoke.py"),
+                   ("torch_run_kitti", "scripts/torch_run_kitti.py"),
+                   ("torch_longrun", "scripts/torch_longrun.py")):
+    spec = importlib.util.spec_from_file_location(name, path)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
 loaded = [k for k, v in sys.modules.items() if v is not None and (
-    k.split(".")[0] in ("jax", "jaxlib", "yaml") or k == "ssvio_tpu"
+    k.split(".")[0] in BLOCKED[:-1] or k == "ssvio_tpu"
     or k.startswith("ssvio_tpu."))]
 print("MODULES", len(mods), "LOADED", loaded)
-"""
+""" % BLOCKED
 
 
 def test_port_and_chip_smoke_import_without_jax_or_yaml():
@@ -45,7 +53,8 @@ def test_port_and_chip_smoke_import_without_jax_or_yaml():
 
 _CHILD_LOOP = r"""
 import sys
-for name in ("jax", "jaxlib", "yaml", "ssvio_tpu"):
+BLOCKED = %s
+for name in BLOCKED:
     sys.modules[name] = None
 from ssvio_tpu_torch import interop, loopclosing
 from ssvio_tpu_torch.config import Settings, bench_loop_settings
@@ -59,7 +68,7 @@ assert s.loop_db_min_size == 24 and Settings().loop_closing_open
 assert callable(interop.loop_closing) and callable(
     sys_.frontend.detect_features)
 print("LOOP SYSTEM", lc.cap, lc.desc_db.shape[1])
-"""
+""" % BLOCKED
 
 
 def test_loop_closing_system_builds_without_jax():

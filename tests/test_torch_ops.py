@@ -243,6 +243,29 @@ def test_device_renderer_matches_jax_renderer():
         assert np.median(d) < 1e-3
 
 
+def test_device_renderer_end_walls_match_numpy_renderer():
+    """The port's closed room (end_z): the device renderer against the port's
+    f64 numpy raycaster, looking at the front wall and back at the back
+    wall; without end_z the same rays run down the corridor."""
+    room = syn_t.SyntheticWorld(seed=11, wall_x=24.0, ceiling_y=-8.0,
+                                end_z=(-10.0, 30.0))
+    open_ = syn_t.SyntheticWorld(seed=11, wall_x=24.0, ceiling_y=-8.0)
+    poses = syn_t.loop_trajectory(4, radius=10.0)[[0, 2]]
+    args = (180.0, 180.0, 80.0, 30.0, 0.54, 160, 64)
+    L_t, R_t = synthetic_torch.render_stereo_sequence_device(
+        room, poses, *args, u8=False)
+    L_n, R_n = syn_t.render_stereo_sequence_numpy(room, poses, *args)
+    L_o, _ = synthetic_torch.render_stereo_sequence_device(
+        open_, poses, *args, u8=False)
+    for a, b in ((L_t, L_n), (R_t, R_n)):
+        d = np.abs(_np(a) - np.stack(b))
+        assert np.mean(d > 0.5) < 0.01, np.mean(d > 0.5)
+        assert np.median(d) < 1e-3
+    centre = (slice(26, 34), slice(76, 84))   # rays along the z axis
+    for i in range(2):
+        assert np.all(_np(L_t[i])[centre] != _np(L_o[i])[centre])
+
+
 def test_settings_copy_parses_without_yaml_at_import():
     from ssvio_tpu.config import Settings as SJ
     from ssvio_tpu_torch import interop

@@ -80,6 +80,20 @@ def test_slice_trajectory_matches(runs):
     np.testing.assert_allclose(kt[:, :, 3], kj[:, :, 3], atol=POS_ATOL_M)
 
 
+def test_slice_odometry_edges_match(runs):
+    """The keyframe odometry edges (PGO's input) of run_step: each edge's
+    Z is taken at the pose the keyframe was inserted at, before its local
+    BA, as the JAX System's run_step takes it (the BA in this run moves
+    the steady keyframe by more than the tolerances)."""
+    ej, et = runs["jax"]["sys"].kf_rel_edges, runs["torch"]["sys"].kf_rel_edges
+    assert len(et) == len(ej) >= 1
+    assert [(a, b) for a, b, _ in et] == [(int(a), int(b)) for a, b, _ in ej]
+    for (_, _, zt), (_, _, zj) in zip(et, ej):
+        zt, zj = np.asarray(zt), np.asarray(zj)
+        np.testing.assert_allclose(zt[:, 3], zj[:, 3], atol=POS_ATOL_M)
+        np.testing.assert_allclose(zt[:, :3], zj[:, :3], atol=1e-4)
+
+
 def test_slice_tum_export_and_unported_entry_points(runs, tmp_path):
     t = runs["torch"]["sys"]
     p = str(tmp_path / "kf.txt")
