@@ -130,15 +130,38 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    same System run on: equal statuses and keyframe counts, positions
    within CKPT_TOL_M. Prints ms a frame of each pass and the phase's wall
    time, beside the card's name and power limit.
-10. prints the kernel table as one JSON line (with each kernel's bound,
+10. multi-device BA (parallel/dist_ba.py, parallel/multihost.py; run
+   before phase 6 too). The standalone sharded local BA at the bench's
+   capacities (window DIST_W, DIST_M landmarks; the problem of
+   scripts/profile_scaling.py::build_problem, the System's 5 x 10 LM
+   schedule): a world of 1 over NCCL on the card (multihost.global_mesh
+   with no process group) must equal ba.local_ba on the card bit for
+   bit; then two ranks sharing the card over gloo (NCCL refuses two ranks
+   on one device): this process is rank 0, a spawned process rank 1,
+   joined over a file store under build/. The ranks' poses and inlier
+   ratio must be equal bit for bit, and poses, landmarks and inlier ratio
+   within DIST_*_TOL of the single-device result. Then the System through
+   that mesh (rank 0 the primary, rank 1 serving every local BA:
+   dist_ba.PrimaryBA / serve) on phase 4's frames through pipelined
+   dispatch_chunk / collect_chunk: statuses and the counts of keyframes
+   and local BAs equal to phase 4's, positions within CHUNK_VS_STEP_M, phase 4's checks (ATE under
+   ATE_MAX_M, kernel #1's launches as the statuses imply and every other
+   kernel 0), and every local BA sharded (stats n_dist_ba = n_ba = the
+   problems rank 1 served). Prints CUDA-event ms per local BA solve
+   plain, at 1 and at 2 ranks, ms per frame, and the phase's seconds,
+   beside the card's name and power limit. A collective that waits more
+   than DIST_TIMEOUT raises.
+11. prints the kernel table as one JSON line (with each kernel's bound,
    bound_ms: the plane pixels the level needs over the memory rate, or
    its operations over the peak rate, BOUND_*), then the result line.
 """
 
 import contextlib
 import dataclasses
+import datetime
 import functools
 import json
+import multiprocessing
 import os
 import shutil
 import subprocess
@@ -149,6 +172,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ssvio_tpu_torch import frontend as fe
 from ssvio_tpu_torch import interop, loopclosing
@@ -161,12 +185,15 @@ from ssvio_tpu_torch.ops import (_nvcc, bow, fast, lk, lk_cuda, lk_patch_cuda,
                                  orb, pgo, pnp, pyramid, sampling, se3)
 from ssvio_tpu_torch import native
 from ssvio_tpu_torch.dataio import kitti as kitti_io
+from ssvio_tpu_torch.ops import ba, camera
 from ssvio_tpu_torch.ops import lk_variants_cuda as lkv
+from ssvio_tpu_torch.parallel import dist_ba, multihost
 from ssvio_tpu_torch.system import System
 from ssvio_tpu_torch.utils import checkpoint, profiling
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(REPO, "scripts"))
+import torch_profile_scaling as scaling  # noqa: E402
 import torch_run_kitti as driver  # noqa: E402
 
 # Kernel vs plain version, positions (px), on every live track that
@@ -265,6 +292,12 @@ CKPT_FRAMES = 64          # frames before the checkpoint, and after it
 CKPT_TOL_M = CHUNK_VS_STEP_M   # a resumed run is the same ops on the same
                                # state; BA's atomics may reorder sums (the
                                # JAX package's test allows 0.05 m)
+# Phase 10: the bench's window and landmark capacity, tests/test_dist_ba.py's
+# tolerances (the same math, summed in another order over two shards)
+DIST_W, DIST_M = 16, 8192
+DIST_POSE_TOL, DIST_LM_TOL, DIST_RATIO_TOL = 5e-4, 5e-3, 0.02
+DIST_REPS = 5             # timed solves, after one warm-up
+DIST_TIMEOUT = datetime.timedelta(seconds=120)
 KERNELS = {
     "lk_level": dict(source="ssvio_tpu_torch/csrc/lk_level.cu",
                      replaces="ssvio_tpu/ops/lk_pallas.py:344"),
@@ -969,7 +1002,8 @@ def phase_run_step(s: Settings, dev):
                total_s=sum(ms) / 1e3, n_init_attempts=imp["n_init_attempts"],
                n_tracked=imp["n_tracked"])
     print("  run_step: " + json.dumps(res))
-    return res, dict(poses=poses, L=L, R=R, after=after, est=est)
+    return res, dict(poses=poses, L=L, R=R, after=after, est=est,
+                     n_keyframes=res["n_keyframes"], n_ba=res["n_ba"])
 
 
 def phase_chunks(s: Settings, dev) -> dict:
@@ -1860,6 +1894,182 @@ def _checkpoint_check(s, L, R, work, dev) -> dict:
     return res
 
 
+def _solve_ms(fn, reps=DIST_REPS):
+    """(the last result, median CUDA-event ms) of `reps` calls of fn after
+    one warm-up call."""
+    fn()
+    ms = []
+    for _ in range(reps):
+        out, t = _timed_once(fn)
+        ms.append(t)
+    return out, float(np.median(ms))
+
+
+def _dist_rank1(store: str, device: str, s: Settings):
+    """Phase 10's rank 1, a spawned process sharing the card: the same
+    standalone solves as rank 0 (its shard), its result sent to rank 0,
+    then dist_ba.serve for rank 0's System, and the number it served."""
+    torch.set_num_threads(1)
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            world_size=2, rank=1, timeout=DIST_TIMEOUT)
+    try:
+        mesh = dist_ba.make_mesh(device=dev)
+        prob, cam = scaling.build_problem(DIST_M, DIST_W)
+        step = dist_ba.distributed_local_ba(mesh, *cam)
+        shard = dist_ba.shard_problem(mesh, prob)
+        with torch.no_grad():
+            for _ in range(1 + DIST_REPS):
+                res = step(shard)
+            dist.broadcast(torch.cat([res.kf_T_cw.reshape(-1),
+                                      res.inlier_ratio.reshape(1),
+                                      res.lm_pos.reshape(-1)]), src=1)
+            rig = camera.StereoRig.from_settings(s, dev)
+            il = rig.intr_left
+            n = dist_ba.serve(mesh, il.fx, il.fy, il.cx, il.cy, rig.baseline)
+            dist.broadcast(torch.tensor([n], device=dev), src=1)
+    finally:
+        dist.destroy_process_group()
+
+
+def _standalone_two_ranks(mesh, prob, cam, plain, dev) -> dict:
+    """Phase 10's two-rank solve on rank 0, held against rank 1's (sent
+    by broadcast) and the single-device result."""
+    step = dist_ba.distributed_local_ba(mesh, *cam)
+    shard = dist_ba.shard_problem(mesh, prob)
+    two, ms = _solve_ms(lambda: step(shard))
+    W, half = DIST_W, DIST_M // 2
+    theirs = torch.empty(12 * W + 1 + 3 * half, device=dev)
+    dist.broadcast(theirs, src=1)
+    kf1, ratio1, lm1 = torch.split(theirs, [12 * W, 1, 3 * half])
+    lm = torch.cat([two.lm_pos, lm1.view(half, 3)])
+    res = dict(
+        ms_per_solve=ms, inlier_ratio=float(two.inlier_ratio),
+        ranks_equal=bool(torch.equal(kf1.view(W, 3, 4), two.kf_T_cw)
+                         and torch.equal(ratio1[0], two.inlier_ratio)),
+        pose_max_diff=float((two.kf_T_cw - plain.kf_T_cw).abs().max()),
+        lm_max_diff=float((lm - plain.lm_pos).abs().max()),
+        ratio_diff=abs(float(two.inlier_ratio - plain.inlier_ratio)))
+    if not (res["ranks_equal"] and res["pose_max_diff"] <= DIST_POSE_TOL
+            and res["lm_max_diff"] <= DIST_LM_TOL
+            and res["ratio_diff"] < DIST_RATIO_TOL):
+        raise AssertionError(f"dist BA, 2 ranks: {res}")
+    return res
+
+
+def _mesh_system(s, mesh, frames, dev) -> dict:
+    """Phase 10's System through the mesh on phase 4's frames (device
+    stacks) in pipelined chunks; held against phase 4's run_step: its
+    statuses, keyframe and BA counts, and positions."""
+    L, R, poses = frames["L"], frames["R"], frames["poses"]
+    ts = [i / s.fps for i in range(len(L))]
+    sys_ = System(s, enable_backend=True, enable_loop_closing=False,
+                  mesh=mesh, device=dev)
+    _zero_launches()
+    t0 = time.perf_counter()
+    handles, prev = [], None
+    for a in range(0, len(L), CHUNK):
+        h = sys_.dispatch_chunk(L[a:a + CHUNK], R[a:a + CHUNK],
+                                ts[a:a + CHUNK])
+        if prev is not None:
+            sys_.collect_chunk(prev)
+        handles.append(h)
+        prev = h
+    sys_.collect_chunk(prev)
+    sys_.finish()
+    wall = time.perf_counter() - t0
+    launches = _launches()
+    sys_.close()
+    served = torch.zeros(1, dtype=torch.int64, device=dev)
+    dist.broadcast(served, src=1)
+    after = [int(v) for h in handles for v in h.outs.status]
+    imp = _implied_launches([fe.INITING] + after[:-1], after)
+    _, est = sys_.frame_trajectory()
+    res = _check_run("dist System", sys_, after, est, poses, launches,
+                     _expect(lk_level=imp["level0_on_level"]["lk_level"]))
+    d = float(np.abs(est[:, :, 3] - frames["est"][:, :, 3]).max())
+    res.update(launches=launches, n_dist_ba=sys_.stats["n_dist_ba"],
+               served=int(served.item()), ms_per_frame=1e3 * wall / len(L),
+               wall_s=wall, vs_phase4_max_m=d)
+    if (after != frames["after"] or d > CHUNK_VS_STEP_M
+            or res["n_keyframes"] != frames["n_keyframes"]
+            or res["n_ba"] != frames["n_ba"]):
+        raise AssertionError(f"dist System: statuses, keyframes, BAs or "
+                             f"positions differ from phase 4's run_step "
+                             f"({frames['n_keyframes']} keyframes, "
+                             f"{frames['n_ba']} BAs; {d} m): {res}")
+    if not res["n_dist_ba"] == res["n_ba"] == res["served"] >= 1:
+        raise AssertionError(f"dist System: not every local BA went through "
+                             f"the mesh: {res}")
+    return res
+
+
+def phase_dist_ba(s: Settings, dev, card: str, frames: dict) -> dict:
+    """Phase 10 (module docstring)."""
+    t_phase = time.perf_counter()
+    print(f"multi-device BA [W {DIST_W}, M {DIST_M}]: a world of 1 over "
+          "NCCL, then 2 ranks sharing the card over gloo")
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    store = os.path.join(REPO, "build", f"chip_smoke_dist_{os.getpid()}")
+    # rank 1 starts now: its imports and CUDA context overlap the world of 1
+    child = multiprocessing.get_context("spawn").Process(
+        target=_dist_rank1, args=(store, str(dev), s))
+    child.start()
+    done = False
+    try:
+        prob, cam = scaling.build_problem(DIST_M, DIST_W)
+        prob = ba.LocalBAProblem(*[x.to(dev) for x in prob])
+        plain, plain_ms = _solve_ms(lambda: ba.local_ba(prob, *cam))
+
+        mesh = multihost.global_mesh(dev)       # no group yet: a world of 1
+        backend = dist.get_backend()
+        step = dist_ba.distributed_local_ba(mesh, *cam)
+        one, one_ms = _solve_ms(
+            lambda: step(dist_ba.shard_problem(mesh, prob)))
+        equal = {k: bool(torch.equal(a, b)) for k, a, b in
+                 zip(ba.LocalBAResult._fields, one, plain)}
+        dist.destroy_process_group()
+        if backend != "nccl" or not all(equal.values()):
+            raise AssertionError(f"dist BA, world of 1 [{backend}]: not "
+                                 f"bit-equal to local_ba: {equal}")
+
+        dist.init_process_group("gloo", init_method=f"file://{store}",
+                                world_size=2, rank=0, timeout=DIST_TIMEOUT)
+        mesh = dist_ba.make_mesh(device=dev)
+        two = _standalone_two_ranks(mesh, prob, cam, plain, dev)
+        system = _mesh_system(s, mesh, frames, dev)
+        dist.destroy_process_group()
+        done = True
+    finally:
+        child.join(timeout=60 if done else 0)
+        if child.is_alive():
+            child.kill()
+            child.join()
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        if os.path.exists(store):
+            os.remove(store)
+    if child.exitcode != 0:
+        raise AssertionError(f"dist BA: rank 1 exited {child.exitcode}")
+    out = dict(plain_ms_per_solve=plain_ms,
+               one_rank=dict(backend=backend, ms_per_solve=one_ms,
+                             bit_equal=True),
+               two_ranks=dict(two, backend="gloo", shared_card=True),
+               system=system, launches=system["launches"],
+               wall_s=time.perf_counter() - t_phase)
+    print(f"  [{card}]")
+    print(f"  standalone BA, ms per solve (CUDA events, median of "
+          f"{DIST_REPS}): plain {plain_ms:.2f}, 1 rank [NCCL] {one_ms:.2f} "
+          f"(bit-equal), 2 ranks sharing the card [gloo] "
+          f"{two['ms_per_solve']:.2f} (the collectives' cost, not scaling)")
+    print("  two ranks: " + json.dumps(two))
+    print("  System through the mesh: " + json.dumps(system))
+    print(f"  phase 10: {out['wall_s']:.1f} s")
+    return out
+
+
 def main() -> None:
     t_start = time.perf_counter()
     card = phase_device()
@@ -1878,6 +2088,7 @@ def main() -> None:
         place = phase_place_recognition(kitti, dev, card)
         loop8 = phase_loop_system(dev, card)
         drive = phase_driver(dev, card)
+        dist_res = phase_dist_ba(kitti, dev, card, frames)
         flavours = phase_flavours(kitti, dev, frames, t_start)
     table = []
     for name, meta in KERNELS.items():
@@ -1890,6 +2101,7 @@ def main() -> None:
             launches=(step["launches"][name] + chunk["launches"][name]
                       + place["launches"][name] + loop8["launches"][name]
                       + drive["launches"][name]
+                      + dist_res["launches"][name]
                       + sum(f["launches"][name] for f in flavours.values())),
             max_abs_err=max(r["max_abs_err"] for r in mine),
             ms=big["ms"], plain_ms=big["plain_ms"], bound_ms=big["bound_ms"],

@@ -13,11 +13,19 @@ unless --device names another (--device cpu for the CPU); without a CUDA
 device and without --device it raises. With no --config_yaml_path it runs
 Settings(), the KITTI-00 defaults, and needs no YAML parser.
 
+With --distributed the process joins a process group
+(`parallel/multihost.py`: the SSVIO_COORDINATOR / SSVIO_NUM_PROCESSES /
+SSVIO_PROCESS_ID variables, or torchrun's; with neither, a world of 1 in
+this process) and the local BA's landmark axis is sharded over its ranks:
+rank 0 runs the driver, and every other rank serves its shard of each BA
+(`dist_ba.serve`) until rank 0 has finished. Backend: NCCL on CUDA
+devices, gloo on the CPU.
+
 Usage:
     python scripts/torch_run_kitti.py --kitti_dataset_path /data/kitti/00 \\
         [--config_yaml_path config.yaml] [--gt_poses 00.txt] \\
         [--save_traj traj.tum] [--snapshot map.png] [--no_loop] \\
-        [--chunk 32] [--device cpu]
+        [--chunk 32] [--device cpu] [--distributed]
 
 `run(system, args)` runs the loop for a System built in code, with the
 arguments of `parse_args`.
@@ -32,11 +40,14 @@ import sys
 import time
 
 import torch
+import torch.distributed as dist
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from ssvio_tpu_torch.config import Settings  # noqa: E402
 from ssvio_tpu_torch.dataio import kitti  # noqa: E402
+from ssvio_tpu_torch.ops import camera  # noqa: E402
+from ssvio_tpu_torch.parallel import dist_ba, multihost  # noqa: E402
 from ssvio_tpu_torch.system import System  # noqa: E402
 from ssvio_tpu_torch.utils import profiling  # noqa: E402
 
@@ -78,8 +89,12 @@ def parse_args(argv=None):
                    help="torch device to run on (default: the current CUDA "
                         "device; cpu for the CPU)")
     p.add_argument("--distributed", action="store_true",
-                   help="multi-device BA (not ported yet: ROADMAP Queue 1 "
-                        "#14)")
+                   help="join a process group before the run (SSVIO_"
+                        "COORDINATOR/SSVIO_NUM_PROCESSES/SSVIO_PROCESS_ID "
+                        "or torchrun's variables; with neither, a world of "
+                        "1) and shard the local BA's landmark axis over its "
+                        "ranks: rank 0 drives, the others serve "
+                        "(parallel/multihost.py)")
     return p.parse_args(argv)
 
 
@@ -130,18 +145,54 @@ def _run_chunked(system, loader, ts, n, chunk, viewer, gt, t0):
     system.finish()    # resolve loop candidates deferred in the last chunks
 
 
-def build_system(args) -> System:
-    """The System the arguments ask for. Raises when no device is named
-    and there is no CUDA device (never falls back to the CPU)."""
+def _require_device(args):
+    """Raises when no device is named and there is no CUDA device (the
+    driver never falls back to the CPU)."""
     if args.device is None and not torch.cuda.is_available():
         raise RuntimeError("torch_run_kitti: no CUDA device; pass "
                            "--device cpu to run on the CPU")
-    settings = (Settings.from_yaml(args.config_yaml_path)
-                if args.config_yaml_path else Settings())
-    return System(settings,
+
+
+def _settings(args) -> Settings:
+    return (Settings.from_yaml(args.config_yaml_path)
+            if args.config_yaml_path else Settings())
+
+
+def build_system(args, mesh=None) -> System:
+    """The System the arguments ask for (its local BA sharded over `mesh`
+    when one is given)."""
+    _require_device(args)
+    return System(_settings(args),
                   enable_backend=False if args.no_backend else None,
                   enable_loop_closing=False if args.no_loop else None,
-                  device=args.device)
+                  mesh=mesh, device=args.device)
+
+
+def join_mesh(args) -> dist_ba.Mesh:
+    """--distributed: join the process group (multihost.initialize) and
+    return the mesh over its ranks, printing the JAX driver's lines."""
+    _require_device(args)
+    if not multihost.initialize(
+            backend=multihost.default_backend(args.device)):
+        print("[run_kitti] --distributed: no coordinator configured "
+              "(set SSVIO_COORDINATOR/SSVIO_NUM_PROCESSES/"
+              "SSVIO_PROCESS_ID) and no torchrun environment; "
+              "continuing single-process")
+    mesh = multihost.global_mesh(args.device)
+    print(f"[run_kitti] distributed: process {mesh.rank}/{mesh.size}, "
+          f"{mesh.size} global devices, mesh axes {mesh.shape}")
+    return mesh
+
+
+def serve(args, mesh: dist_ba.Mesh) -> int:
+    """A rank > 0 of --distributed: serve this rank's shard of each local
+    BA of rank 0's System until it has finished. Returns the BAs served."""
+    rig = camera.StereoRig.from_settings(_settings(args), mesh.device)
+    il = rig.intr_left
+    n = dist_ba.serve(mesh, il.fx, il.fy, il.cx, il.cy, rig.baseline)
+    print(f"[run_kitti] process {mesh.rank}/{mesh.size}: served {n} "
+          "local BAs")
+    return n
 
 
 def run(system: System, args) -> dict:
@@ -220,12 +271,23 @@ def run(system: System, args) -> dict:
 
 def main(argv=None) -> int:
     args = parse_args(argv)
-    if args.distributed:
-        raise NotImplementedError(
-            "--distributed: multi-device BA is not ported to ssvio_tpu_torch "
-            "yet (ROADMAP Queue 1 #14)")
-    with torch.no_grad():
-        run(build_system(args), args)
+    if not args.distributed:
+        with torch.no_grad():
+            run(build_system(args), args)
+        return 0
+    mesh = join_mesh(args)
+    try:
+        if mesh.rank > 0:
+            serve(args, mesh)
+            return 0
+        system = build_system(args, mesh)
+        try:
+            with torch.no_grad():
+                run(system, args)
+        finally:
+            system.close()
+    finally:
+        dist.destroy_process_group()
     return 0
 
 

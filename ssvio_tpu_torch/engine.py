@@ -33,6 +33,7 @@ from ssvio_tpu_torch import frontend as fe
 from ssvio_tpu_torch import loopclosing
 from ssvio_tpu_torch import map as mapmod
 from ssvio_tpu_torch.ops import ba, se3
+from ssvio_tpu_torch.parallel import dist_ba
 
 
 class EngineCarry(NamedTuple):
@@ -74,24 +75,40 @@ class _Frame(NamedTuple):
     kf_gid: int
     feat: fe.FeatState
     ran_ba: bool
+    ran_dist_ba: bool         # that BA sharded over the mesh
     desc: Optional[torch.Tensor]   # loop descriptors of a keyframe (or None)
     dval: Optional[torch.Tensor]
 
 
 class Engine:
     """Runs chunks of the per-frame step on the frontend's device.
-    Stateless: all SLAM state lives in the EngineCarry the caller threads
-    through."""
+    Stateless but for the mesh's BA client: all SLAM state lives in the
+    EngineCarry the caller threads through.
+
+    `mesh` (`parallel.dist_ba.Mesh`, this process rank 0 of it, on the
+    frontend's device): the local BA of every steady keyframe is sharded
+    over the mesh's landmark axis, through `dist_ba.PrimaryBA` (`self.dist`;
+    the other ranks run `dist_ba.serve`). The JAX engine gets the same
+    sharding from sharding constraints on the map inside its compiled
+    chunk; tracking stays on one rank in both."""
 
     def __init__(self, frontend: fe.Frontend, enable_backend: bool,
                  mesh=None, loop_desc: bool = False):
-        if mesh is not None:
-            raise NotImplementedError(
-                "Landmark-sharded BA over a device mesh is not ported to "
-                "ssvio_tpu_torch yet (ROADMAP Queue 1 #14)")
         self.fe = frontend
         self.s = frontend.s
         self.enable_backend = enable_backend
+        self.dist = None
+        if mesh is not None:
+            if mesh.device != frontend.device:
+                raise ValueError(f"the mesh's device {mesh.device} is not "
+                                 f"the frontend's {frontend.device}")
+            if self.s.max_landmarks % mesh.size:
+                raise ValueError(f"max_landmarks {self.s.max_landmarks} is "
+                                 f"not divisible by the mesh's {mesh.size} "
+                                 "ranks")
+            f = frontend
+            self.dist = dist_ba.PrimaryBA(mesh, f._fx, f._fy, f._cx, f._cy,
+                                          f._baseline)
         # loop_desc: keyframe frames emit the loop-closing descriptor
         # ladder (FrameOut.desc)
         self.loop_desc = loop_desc
@@ -149,7 +166,7 @@ class Engine:
         feat_f, m_f, T_f = out.feat, carry.m, out.T_cw
         rel_f = out.rel_motion
         kf_slot = kf_gid = -1
-        ran_ba = False
+        ran_ba = ran_dist_ba = False
         desc = dval = img_r0 = None
         T_in = out.T_cw
         if need_kf:
@@ -180,12 +197,15 @@ class Engine:
                 if self.enable_backend and not is_init:
                     # sliding-window BA rides steady keyframes only (the
                     # reference backend starts after init too)
-                    res = ba.local_ba(mapmod.ba_problem_from_map(m2), f._fx,
-                                      f._fy, f._cx, f._cy, f._baseline)
+                    prob = mapmod.ba_problem_from_map(m2)
+                    res = (self.dist(prob) if self.dist is not None else
+                           ba.local_ba(prob, f._fx, f._fy, f._cx, f._cy,
+                                       f._baseline))
                     m2 = mapmod.apply_ba_result(m2, res.kf_T_cw, res.lm_pos,
                                                 res.obs_valid)
                     T2 = m2.kf_pose[slot]
                     ran_ba = True
+                    ran_dist_ba = self.dist is not None
                 feat_f, m_f, T_f = feat2, m2, T2
                 kf_slot, kf_gid = slot, gid
                 if is_init:
@@ -197,14 +217,16 @@ class Engine:
                     else status_t)
         c2 = EngineCarry(pyr_l, feat_f, T_f, rel_f, m_f, status_f)
         return c2, _Frame(T_f, T_in, img_r0, status_f, out.n_inliers,
-                          kf_slot, kf_gid, feat_f, ran_ba, desc, dval)
+                          kf_slot, kf_gid, feat_f, ran_ba, ran_dist_ba, desc,
+                          dval)
 
     # ------------------------------------------------------------------
     def run_chunk(self, carry: EngineCarry, imgs_l: torch.Tensor,
                   imgs_r: torch.Tensor):
         """Run the per-frame step over [K, H, W] stereo stacks (u8 or f32)
         on the device. Returns (carry, outs: FrameOut, packed: the f32
-        vector of pack_readback, n_ba: local BAs run)."""
+        vector of pack_readback, n_ba: local BAs run, n_dist_ba: of them,
+        sharded over the mesh)."""
         frames: List[_Frame] = []
         for k in range(imgs_l.shape[0]):
             carry, fr = self._step(carry, imgs_l[k],
@@ -233,7 +255,8 @@ class Engine:
             dval=torch.stack([no_dval if fr.dval is None else fr.dval
                               for fr in frames]))
         return (carry, outs, pack_readback(carry, outs),
-                sum(fr.ran_ba for fr in frames))
+                sum(fr.ran_ba for fr in frames),
+                sum(fr.ran_dist_ba for fr in frames))
 
 
 PER_FRAME_PACK = 17          # 12 pose + status + n_inliers + kf_flag/slot/gid

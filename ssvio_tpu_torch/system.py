@@ -18,9 +18,13 @@ collect (or at `finish()`). A correction applied while a chunk was in
 flight is recorded in `_gauge_events`, and collect_chunk re-gauges that
 chunk's read-back poses with it. A LOST frame relocalizes against the
 keyframe database when Settings.relocalization_open is set: the next
-run_step frame, or the chunk's last frame at its collect. Landmark-sharded
-BA over a mesh is not ported yet and raises NotImplementedError naming its
-ROADMAP item (#14).
+run_step frame, or the chunk's last frame at its collect.
+
+With a mesh (`parallel.dist_ba.Mesh`, this process its rank 0) the local
+BA of every steady keyframe, on both paths, is sharded over the mesh's
+landmark axis (engine.py; the other ranks run `dist_ba.serve` until
+`close()`), and `stats["n_dist_ba"]` counts those BAs. A relocalization's
+BA stays on this rank, as the JAX System's does.
 """
 
 from __future__ import annotations
@@ -40,11 +44,6 @@ from ssvio_tpu_torch.loopclosing import LoopClosing, LoopEvent
 from ssvio_tpu_torch.ops import ba, se3
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to ssvio_tpu_torch yet (ROADMAP Queue 1 {item})")
-
-
 class ChunkHandle(NamedTuple):
     """What dispatch_chunk hands to collect_chunk."""
     packed: torch.Tensor          # pack_readback's vector, on the host
@@ -53,6 +52,7 @@ class ChunkHandle(NamedTuple):
     timestamps: List[float]
     n_frames: int
     n_ba: int                     # local BAs the chunk ran
+    n_dist_ba: int                # of them, sharded over the mesh
     gauge_idx: int                # len(_gauge_events) at dispatch
     m: mapmod.MapState            # the map after the chunk (loop ingest)
     last_l: torch.Tensor          # the chunk's last images, padded, for
@@ -71,8 +71,6 @@ class System:
                                else enable_backend)
         enable_loop = (settings.loop_closing_open if enable_loop_closing is None
                        else enable_loop_closing)
-        if mesh is not None:
-            raise _not_ported("Landmark-sharded BA over a device mesh", "#14")
         # the GPU unless the caller asks for the CPU (device="cpu")
         self.device = fe.resolve_device(device)
         # host-to-device copies of chunks ride their own stream, so an
@@ -89,7 +87,7 @@ class System:
         # the per-frame step, shared by run_step and the chunk API; with
         # loop closing its keyframe branch emits the loop descriptors
         self._engine = eng.Engine(self.frontend, self.enable_backend,
-                                  loop_desc=enable_loop)
+                                  mesh=mesh, loop_desc=enable_loop)
         self.loopclosing: Optional[LoopClosing] = None
         self.reset()
         if enable_loop:
@@ -133,8 +131,8 @@ class System:
         # and collect_chunk right-composes the corrections since its
         # dispatch onto them
         self._gauge_events = []     # [C [3,4] np, ...]
-        self.stats = {"n_keyframes": 0, "n_ba": 0, "n_loops": 0,
-                      "warnings": []}
+        self.stats = {"n_keyframes": 0, "n_ba": 0, "n_dist_ba": 0,
+                      "n_loops": 0, "warnings": []}
         if self.loopclosing is not None:
             old = self.loopclosing
             self.loopclosing = lc = self._new_loopclosing()
@@ -233,6 +231,7 @@ class System:
                                      fr.T_kf.cpu().numpy(), self.frame_id)
         if fr.ran_ba:
             self.stats["n_ba"] += 1
+            self.stats["n_dist_ba"] += fr.ran_dist_ba
             self._refresh_keyframe_records()
         if fr.kf_slot >= 0 and self.loopclosing is not None:
             self._count_event(self.loopclosing.process_keyframe(
@@ -357,8 +356,8 @@ class System:
         imgs_l = self._device_stack(lefts)
         imgs_r = self._device_stack(rights)
         gauge_idx = len(self._gauge_events)
-        carry, outs, packed, n_ba = self._engine.run_chunk(self._carry(),
-                                                           imgs_l, imgs_r)
+        carry, outs, packed, n_ba, n_dist = self._engine.run_chunk(
+            self._carry(), imgs_l, imgs_r)
         self._install(carry)
         # the chunk's last pair: relocalization reads it at collect, after
         # the caller may have reused its stack, so loop closing keeps a copy;
@@ -375,7 +374,7 @@ class System:
             ready.record(torch.cuda.current_stream(self.device))
             packed = host
         return ChunkHandle(packed, ready, outs, list(timestamps), K, n_ba,
-                           gauge_idx, carry.m, last_l, last_r)
+                           n_dist, gauge_idx, carry.m, last_l, last_r)
 
     @torch.no_grad()
     def collect_chunk(self, handle: ChunkHandle) -> np.ndarray:
@@ -444,6 +443,7 @@ class System:
                 lost_since_kf = False
         self._lost_since_kf = lost_since_kf
         self.stats["n_ba"] += handle.n_ba
+        self.stats["n_dist_ba"] += handle.n_dist_ba
         self._refresh_keyframe_records(window)
         self.last_stereo = (handle.last_l, handle.last_r)
         if self.loopclosing is None:
@@ -502,6 +502,13 @@ class System:
         the last collect_chunk, as the JAX package's bench.py and
         scripts/run_kitti.py do."""
         self._poll_loopclosing()
+
+    def close(self):
+        """With a mesh: stop the ranks that serve its local BA (they return
+        from dist_ba.serve); the System's BA cannot run after it. Without
+        one: nothing."""
+        if self._engine.dist is not None:
+            self._engine.dist.close()
 
     # ------------------------------------------------------------------
     def _try_relocalize(self, pyr_l: fe.Pyr, right, timestamp) -> bool:

@@ -99,9 +99,13 @@ def test_driver_matches_the_jax_driver(seq, tmp_path, capsys):
 
 
 def test_driver_refuses_what_it_cannot_run(seq, tmp_path, monkeypatch):
+    """Without a CUDA device and without --device the driver raises and
+    names the fix, with --distributed too (before it joins a process
+    group: none is left behind). --distributed itself runs:
+    tests/test_torch_multihost.py."""
     seq, _ = seq
-    with pytest.raises(NotImplementedError, match="#14"):
-        torch_run_kitti.main(_argv(seq, tmp_path / "x.tum", "--distributed"))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="--device cpu"):
-        torch_run_kitti.main(_argv(seq, tmp_path / "x.tum"))
+    for extra in ((), ("--distributed",)):
+        with pytest.raises(RuntimeError, match="--device cpu"):
+            torch_run_kitti.main(_argv(seq, tmp_path / "x.tum", *extra))
+    assert not torch.distributed.is_initialized()

@@ -24,6 +24,7 @@ from ssvio_tpu_torch import engine as eng_t
 from ssvio_tpu_torch import frontend as fe_t
 from ssvio_tpu_torch import interop
 from ssvio_tpu_torch.dataio import synthetic, synthetic_torch
+from ssvio_tpu_torch.parallel import dist_ba
 from ssvio_tpu_torch.system import System
 from test_engine_chunked import _settings
 from test_torch_ops import one_torch_thread  # noqa: F401 (autouse)
@@ -167,17 +168,31 @@ def test_engine_from_fresh_carry(seq, per_frame):
     engine = eng_t.Engine(sys_.frontend, enable_backend=True)
     carry = eng_t.fresh_carry(s, sys_.frontend, sys_.map)
     assert carry.status == fe_t.INITING
-    carry, outs, packed, n_ba = engine.run_chunk(
+    carry, outs, packed, n_ba, n_dist_ba = engine.run_chunk(
         carry, *sys_.upload_chunk(L[:3], R[:3]))
     assert outs.status.tolist() == st_a[:3] and carry.status == st_a[2]
-    assert outs.kf_flag.tolist() == [True, False, False] and n_ba == 0
+    assert outs.kf_flag.tolist() == [True, False, False]
+    assert n_ba == n_dist_ba == 0
     assert packed.shape == (3 * eng_t.PER_FRAME_PACK + 1 + 14 * s.max_window,)
     T_wc = np.stack([t for _, _, t in a.trajectory[:3]])
     R_cw = outs.T_cw[:, :, :3].numpy()
     t_wc = -np.einsum("kji,kj->ki", R_cw, outs.T_cw[:, :, 3].numpy())
     np.testing.assert_allclose(t_wc, T_wc[:, :, 3], atol=POS_ATOL_M)
-    with pytest.raises(NotImplementedError, match="#14"):
-        eng_t.Engine(sys_.frontend, enable_backend=True, mesh=object())
+    # with a mesh the engine's BA goes through a PrimaryBA (run over two
+    # ranks in tests/test_torch_multihost.py); the engine must be rank 0
+    # and on the mesh's device
+    cpu = torch.device("cpu")
+    assert eng_t.Engine(sys_.frontend, enable_backend=True,
+                        mesh=dist_ba.Mesh(None, 0, 2, cpu)).dist.n_solves == 0
+    with pytest.raises(ValueError, match="rank 0"):
+        eng_t.Engine(sys_.frontend, enable_backend=True,
+                     mesh=dist_ba.Mesh(None, 1, 2, cpu))
+    with pytest.raises(ValueError, match="device"):
+        eng_t.Engine(sys_.frontend, enable_backend=True,
+                     mesh=dist_ba.Mesh(None, 0, 2, torch.device("meta")))
+    with pytest.raises(ValueError, match="not divisible"):
+        eng_t.Engine(sys_.frontend, enable_backend=True,
+                     mesh=dist_ba.Mesh(None, 0, s.max_landmarks + 1, cpu))
 
 
 def test_pack_readback_matches_jax_layout():

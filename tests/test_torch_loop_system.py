@@ -27,6 +27,7 @@ from ssvio_tpu_torch import frontend as fe_t
 from ssvio_tpu_torch import interop
 from ssvio_tpu_torch.config import Settings
 from ssvio_tpu_torch.ops import bow as bow_t
+from ssvio_tpu_torch.parallel import dist_ba
 from ssvio_tpu_torch.system import System as SystemT
 from test_relocalization import _sequence, _small_settings
 from test_torch_ops import one_torch_thread  # noqa: F401 (autouse)
@@ -204,8 +205,8 @@ def test_reset_keeps_or_drops_the_vocabulary(scene):
 def test_default_settings_construct_with_loop_closing(monkeypatch):
     """System(Settings()) has loop closing on (Settings.loop_closing_open)
     and constructs, on the CPU when asked and on the CUDA device by
-    default (none here: it raises naming device="cpu"); mesh= still raises
-    its ROADMAP item."""
+    default (none here: it raises naming device="cpu"); with a mesh its
+    steady keyframes' BA goes through the mesh's PrimaryBA."""
     sys_ = SystemT(Settings(), device="cpu")
     lc = sys_.loopclosing
     assert lc is not None and lc.device == torch.device("cpu")
@@ -215,5 +216,8 @@ def test_default_settings_construct_with_loop_closing(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match='device="cpu"'):
         SystemT(Settings())
-    with pytest.raises(NotImplementedError, match="#14"):
-        SystemT(Settings(), mesh=object(), device="cpu")
+    cpu = torch.device("cpu")
+    meshed = SystemT(Settings(), mesh=dist_ba.Mesh(None, 0, 2, cpu),
+                     device="cpu")
+    assert meshed.loopclosing is not None and meshed._engine.loop_desc
+    assert meshed._engine.dist.n_solves == meshed.stats["n_dist_ba"] == 0

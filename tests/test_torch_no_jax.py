@@ -1,6 +1,7 @@
 """The port stands alone: importing `ssvio_tpu_torch` (every module),
-chip_smoke.py's module-level code and the driver scripts the card runs
-(scripts/torch_run_kitti.py, scripts/torch_longrun.py) needs neither jax,
+chip_smoke.py's module-level code and the scripts the card runs
+(scripts/torch_run_kitti.py, scripts/torch_longrun.py,
+scripts/torch_profile_scaling.py) needs neither jax,
 PyYAML, OpenCV, matplotlib nor the JAX package, and neither does building
 the loop-closing System (the engine's descriptor branch, the LoopClosing
 class, interop's loop_closing). The machine with the GPU has none of them.
@@ -30,7 +31,9 @@ for m in mods:
     importlib.import_module(m)
 for name, path in (("chip_smoke", "chip_smoke.py"),
                    ("torch_run_kitti", "scripts/torch_run_kitti.py"),
-                   ("torch_longrun", "scripts/torch_longrun.py")):
+                   ("torch_longrun", "scripts/torch_longrun.py"),
+                   ("torch_profile_scaling",
+                    "scripts/torch_profile_scaling.py")):
     spec = importlib.util.spec_from_file_location(name, path)
     spec.loader.exec_module(importlib.util.module_from_spec(spec))
 loaded = [k for k, v in sys.modules.items() if v is not None and (

@@ -23,6 +23,7 @@ from ssvio_tpu.eval import ate
 from ssvio_tpu.system import System as SystemJ
 from ssvio_tpu_torch import frontend as fe_t
 from ssvio_tpu_torch import interop
+from ssvio_tpu_torch.parallel import dist_ba
 from ssvio_tpu_torch.system import System as SystemT
 from test_system_e2e import BASELINE, CX, CY, FX, FY, H, W, small_settings
 from test_torch_ops import one_torch_thread  # noqa: F401 (autouse)
@@ -110,9 +111,11 @@ def test_slice_tum_export_and_unported_entry_points(runs, tmp_path):
     # loop closing is ported (tests/test_torch_loop_system.py): it builds
     assert SystemT(s, enable_loop_closing=True,
                    device="cpu").loopclosing is not None
-    with pytest.raises(NotImplementedError, match="#14"):
-        SystemT(s, enable_loop_closing=False, mesh=object(),
-                device="cpu")
+    # so is the mesh (tests/test_torch_multihost.py): it must be on the
+    # System's device
+    with pytest.raises(ValueError, match="device"):
+        SystemT(s, enable_loop_closing=False, device="cpu",
+                mesh=dist_ba.Mesh(None, 0, 2, torch.device("meta")))
 
 
 def test_system_runs_on_the_gpu_unless_asked_for_the_cpu(monkeypatch):
