@@ -151,7 +151,26 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    plain, at 1 and at 2 ranks, ms per frame, and the phase's seconds,
    beside the card's name and power limit. A collective that waits more
    than DIST_TIMEOUT raises.
-11. prints the kernel table as one JSON line (with each kernel's bound,
+11. the profiling tools on the card (scripts/torch_profile_*.py,
+   scripts/torch_probe_gauge_invariance.py; run after phase 10, before
+   phase 6), each through its main(argv) at a cut: one traced steady
+   chunk of PROFILE_CHUNK frames (torch_profile_trace: kernel #1's events
+   in the chrome trace equal lk_cuda.LAUNCHES' delta over the chunk, the
+   busy share over the untraced run of the chunk and over the traced one
+   both in (0, 1], the top ops' time within the traced window);
+   the ablation over PROFILE_FRAMES frames (its full variant's statuses
+   equal to run_step's, positions within its POS_TOL_M); each stage alone
+   (torch_profile_stages: every LK stage launches kernel #1 once a level:
+   lk.track 3, _track_step 2 x 3, _keyframe_step 2 x 4); the engine step
+   per frame over PROFILE_FRAMES frames and in chunks of half as many
+   (tracking and keyframe frames both seen); transfers (pinned and
+   pageable GB/s above 0, side-stream copies overlapping the port's step
+   by a share above OVERLAP_MIN); one ingest batch; and one gauge probe
+   at GAUGE_PREFIX / GAUGE_END (healths equal, poses within its
+   POSE_TOL_M up to the gauge). Prints each tool's numbers and the
+   phase's seconds beside the card's name and power limit; its kernel
+   launches join the kernel table's.
+12. prints the kernel table as one JSON line (with each kernel's bound,
    bound_ms: the plane pixels the level needs over the memory rate, or
    its operations over the peak rate, BOUND_*), then the result line.
 """
@@ -193,7 +212,14 @@ from ssvio_tpu_torch.utils import checkpoint, profiling
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(REPO, "scripts"))
+import torch_probe_gauge_invariance as gauge_probe  # noqa: E402
+import torch_profile_ablation as prof_ablation  # noqa: E402
+import torch_profile_engine as prof_engine  # noqa: E402
+import torch_profile_ingest as prof_ingest  # noqa: E402
 import torch_profile_scaling as scaling  # noqa: E402
+import torch_profile_stages as prof_stages  # noqa: E402
+import torch_profile_trace as prof_trace  # noqa: E402
+import torch_profile_transfer as prof_transfer  # noqa: E402
 import torch_run_kitti as driver  # noqa: E402
 
 # Kernel vs plain version, positions (px), on every live track that
@@ -298,6 +324,17 @@ DIST_W, DIST_M = 16, 8192
 DIST_POSE_TOL, DIST_LM_TOL, DIST_RATIO_TOL = 5e-4, 5e-3, 0.02
 DIST_REPS = 5             # timed solves, after one warm-up
 DIST_TIMEOUT = datetime.timedelta(seconds=120)
+# Phase 11: the profiling tools at cuts
+PROFILE_CHUNK = 3         # torch_profile_trace's chunk (its default: 8)
+PROFILE_FRAMES = 16       # the ablation's chunk and the engine tool's frames
+PROFILE_REPS = 3          # timed calls of a stage, an ingest; the
+                          # transfer tool's turns (its overlap share is
+                          # the median of a turn's)
+GAUGE_PREFIX, GAUGE_END = 10, 20    # the gauge probe's frames (its scene's
+                                    # defaults: 100, 160)
+OVERLAP_MIN = 0.5         # side-stream copies against the step: a share a
+                          # serialised copy (near 0) cannot reach (on an
+                          # H100 a turn gives 0.67-1.21, the median 0.9-1)
 KERNELS = {
     "lk_level": dict(source="ssvio_tpu_torch/csrc/lk_level.cu",
                      replaces="ssvio_tpu/ops/lk_pallas.py:344"),
@@ -2070,6 +2107,114 @@ def phase_dist_ba(s: Settings, dev, card: str, frames: dict) -> dict:
     return out
 
 
+def _check_trace(tr) -> None:
+    k1 = tr["counter_launches"]["lk_level"]
+    top_ms = sum(ms for _, _, ms in tr["top_ops"])
+    if k1 <= 0 or tr["trace_kernel1"] != k1:
+        raise AssertionError(f"trace: {tr['trace_kernel1']} kernel #1 "
+                             f"events, its counter {k1}")
+    for key in ("busy_share", "traced_busy_share"):
+        if not 0.0 < tr[key] <= 1.0:
+            raise AssertionError(f"trace: {key} {tr[key]}")
+    if not top_ms <= tr["window_ms"]:
+        raise AssertionError(f"trace: the top ops' {top_ms} ms exceed the "
+                             f"window's {tr['window_ms']} ms")
+
+
+def _check_stages(st) -> None:
+    want = {"build_pyramid": {}, "lk.track fwd": {"lk_level": 3},
+            "track_step": {"lk_level": 6}, "keyframe_step": {"lk_level": 8}}
+    got = {k: st["stages"][k]["launches_per_call"] for k in want}
+    if got != want:
+        raise AssertionError(f"stages: launches a call {got} != {want}")
+
+
+def phase_profiling(dev, card: str) -> dict:
+    """Phase 11 (module docstring)."""
+    t_phase = time.perf_counter()
+    print("the profiling tools at cuts:")
+    d = ["--device", str(dev)]
+    work = os.path.join(REPO, "build", f"chip_smoke_trace_{os.getpid()}")
+    secs = {}
+
+    def run(tag, tool, argv):
+        t = time.perf_counter()
+        res = tool.main(argv + d)
+        secs[tag] = time.perf_counter() - t
+        return res
+    _zero_launches()
+    try:
+        tr = run("trace", prof_trace, ["--chunk", str(PROFILE_CHUNK), "--out",
+                                       work])
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    _check_trace(tr)
+    ab = run("ablation", prof_ablation, ["--chunk", str(PROFILE_FRAMES),
+                                         "--reps", "1"])
+    chk = ab["full_vs_run_step"]
+    if not chk["statuses_equal"] or \
+            not chk["max_position_diff_m"] <= prof_ablation.POS_TOL_M:
+        raise AssertionError(f"ablation: full variant vs run_step {chk}")
+    st = run("stages", prof_stages, ["--reps", str(PROFILE_REPS)])
+    _check_stages(st)
+    en = run("engine", prof_engine, ["--frames", str(PROFILE_FRAMES),
+                                     "--chunk", str(PROFILE_FRAMES // 2)])
+    if not en["n_keyframes"] or not en["n_tracking"]:
+        raise AssertionError(f"engine: {en['n_tracking']} tracking and "
+                             f"{en['n_keyframes']} keyframe frames")
+    trf = run("transfer", prof_transfer, ["--reps", str(PROFILE_REPS)])
+    h2d = trf["host_to_device"][f"kitti x{prof_transfer.CHUNK}"]
+    if not (h2d["pageable"]["gb_per_s"] > 0 and h2d["pinned"]["gb_per_s"] > 0
+            and trf["overlap"]["share"] > OVERLAP_MIN):
+        raise AssertionError(f"transfer: {h2d}, {trf['overlap']}")
+    ing = run("ingest", prof_ingest, ["--reps", str(PROFILE_REPS)])
+    gp = run("gauge", gauge_probe, ["--prefix", str(GAUGE_PREFIX), "--end",
+                                    str(GAUGE_END)])
+    for tag in ("corrected", "pipelined"):
+        if not gp[tag]["invariant"]:
+            raise AssertionError(f"gauge probe [{tag}]: not invariant "
+                                 f"(tolerance {gp['pose_tol_m']} m): "
+                                 f"{gp[tag]}")
+    out = dict(launches=_launches(), wall_s=time.perf_counter() - t_phase,
+               tool_s=secs, trace=dict(tr, top_ops=tr["top_ops"][:10]), ablation=ab,
+               stages=st, engine=en, transfer=trf, ingest=ing, gauge=gp)
+    print(f"  [{card}]")
+    print(f"  trace: busy share {tr['busy_share']:.4f} of the untraced "
+          f"chunk ({tr['traced_busy_share']:.4f} of the traced, stretched "
+          f"{tr['stretch']:.3f}x), {tr['kernels_per_frame']:.0f} kernels a "
+          f"frame, kernel #1 {tr['trace_kernel1']} events = its counter")
+    print("  ablation ms/frame: " + ", ".join(
+        f"{k} {v['ms_per_frame']:.2f}" for k, v in ab["variants"].items())
+        + f"; full vs run_step {chk['max_position_diff_m']:.3g} m")
+    print("  stages ms: " + ", ".join(f"{k} {v['ms']:.2f}"
+                                      for k, v in st["stages"].items()))
+    print(f"  engine: tracking frame median {en['track_ms_median']:.2f} ms "
+          f"(p90 {en['track_ms_p90']:.2f}), keyframe frame median "
+          f"{en['kf_ms_median']:.2f} ms, chunks of {PROFILE_FRAMES // 2} "
+          f"{en['chunk_ms_per_frame_median']:.2f} ms/frame")
+    print(f"  transfer: a chunk of {prof_transfer.CHUNK} KITTI pairs pageable "
+          f"{h2d['pageable']['gb_per_s']:.2f} GB/s, pinned "
+          f"{h2d['pinned']['gb_per_s']:.2f} GB/s; readback "
+          f"{trf['readback']['pinned_event_ms']:.3f} ms; overlap share "
+          f"{trf['overlap']['share']:.3f} (turns "
+          f"{[round(x, 3) for x in trf['overlap']['shares']]}; "
+          f"{trf['overlap']['copies']} "
+          f"copies of {trf['overlap']['copy_ms']:.1f} ms against a step of "
+          f"{trf['overlap']['step_ms']:.1f} ms)")
+    print(f"  ingest: describe {ing['describe_ms']:.2f}, transform "
+          f"{ing['transform_ms']:.2f}, score {ing['score_ms']:.3f}, ingest "
+          f"of {ing['batch']} {ing['ingest_ms']:.2f} ms")
+    print(f"  gauge probe: healths equal; poses within "
+          f"{gp['corrected']['max_translation_delta_m']:.3g} / "
+          f"{gp['pipelined']['max_translation_delta_m']:.3g} m of the "
+          f"baseline's in the corrected gauge (tolerance "
+          f"{gp['pose_tol_m']} m)")
+    print(f"  phase 11: {out['wall_s']:.1f} s (" + ", ".join(
+        f"{k} {v:.1f}" for k, v in secs.items()) + f"), launches "
+        f"{out['launches']}")
+    return out
+
+
 def main() -> None:
     t_start = time.perf_counter()
     card = phase_device()
@@ -2089,6 +2234,7 @@ def main() -> None:
         loop8 = phase_loop_system(dev, card)
         drive = phase_driver(dev, card)
         dist_res = phase_dist_ba(kitti, dev, card, frames)
+        prof = phase_profiling(dev, card)
         flavours = phase_flavours(kitti, dev, frames, t_start)
     table = []
     for name, meta in KERNELS.items():
@@ -2102,6 +2248,7 @@ def main() -> None:
                       + place["launches"][name] + loop8["launches"][name]
                       + drive["launches"][name]
                       + dist_res["launches"][name]
+                      + prof["launches"][name]
                       + sum(f["launches"][name] for f in flavours.values())),
             max_abs_err=max(r["max_abs_err"] for r in mine),
             ms=big["ms"], plain_ms=big["plain_ms"], bound_ms=big["bound_ms"],

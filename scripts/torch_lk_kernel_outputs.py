@@ -63,16 +63,21 @@ def _shifted(img, sx, sy):
             + fy * ((1 - fx) * img[y0 + 1, x0] + fx * img[y0 + 1, x0 + 1]))
 
 
-def _inputs(dev):
-    """Per level: (planes, pts, guess, frozen0, padded_hw)."""
+def _inputs(dev, levels=LEVELS, n_live=N_LIVE, hard=False):
+    """Per level of `levels` (level 0 first, each half the one before):
+    (planes, pts, guess, frozen0, padded_hw), with the first n_live of the
+    N_KP keypoints live. hard: the current image is independent noise
+    (numpy seed 8) instead of the shifted texture, so tracks step to the
+    iteration cap."""
     from ssvio_tpu_torch.ops import lk, pyramid
     rng = np.random.default_rng(7)
-    img = _texture(rng, *LEVELS[0], sigma=3.0)
-    img2 = _shifted(img, *SHIFT)
-    pts0 = rng.uniform([16, 16], [LEVELS[0][1] - 16, LEVELS[0][0] - 16],
+    img = _texture(rng, *levels[0], sigma=3.0)
+    img2 = (np.random.default_rng(8).uniform(0, 255, levels[0]) if hard
+            else _shifted(img, *SHIFT))
+    pts0 = rng.uniform([16, 16], [levels[0][1] - 16, levels[0][0] - 16],
                        (N_KP, 2))
     out = []
-    for l, (h, w) in enumerate(LEVELS):
+    for l, (h, w) in enumerate(levels):
         a = torch.from_numpy(img[::2 ** l, ::2 ** l].astype(np.float32))
         b = torch.from_numpy(img2[::2 ** l, ::2 ** l].astype(np.float32))
         gx, gy = pyramid.sobel_gradients(a)
@@ -81,7 +86,7 @@ def _inputs(dev):
         # the guess 0.6 of the level's motion, as a coarser level seeds it
         guess = pts + 0.6 * torch.tensor(SHIFT, device=dev) / 2 ** l
         frozen0 = torch.zeros((N_KP, 1), dtype=torch.int32, device=dev)
-        frozen0[N_LIVE:] = 1
+        frozen0[n_live:] = 1
         out.append((planes, pts, guess.contiguous(), frozen0,
                     lk.padded_dims(h, w)))
     return out

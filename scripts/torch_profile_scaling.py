@@ -11,18 +11,28 @@ two warm-up solves, then the median of 5, timed on rank 0 between two
 all_reduces that line the ranks up. Speedup and efficiency are against
 the 1-rank time.
 
+With --engine (profile_scaling.py:72-150) it times the whole engine step
+instead, the keyframe + BA branch: `Engine._step` at 256x128 with 256
+features, M landmarks (8192 by default) and a window of 12, the branch
+forced by tracking_good 10**9 and tracking_bad -1, from one seeded carry
+(random images, features linked to random landmarks) each time. Rank 0
+drives `Engine(mesh=...)`, whose local BA is sharded over the ranks
+(dist_ba.PrimaryBA); the other ranks serve it (dist_ba.serve). One
+warm-up step, then the median of ENGINE_REPS.
+
 On the CPU the ranks run over gloo, each on one thread. On CUDA, ranks
 take devices cuda:0..; a world of more ranks than devices shares them
 over gloo (NCCL refuses two ranks on one device), and the output line
 says so: on one GPU that measures the collectives' cost, not scaling.
 
 Usage: python scripts/torch_profile_scaling.py [--device cpu] [--json]
-           [M_landmarks]
+           [--engine] [M_landmarks]
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import datetime
 import json
 import os
@@ -36,11 +46,18 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-from ssvio_tpu_torch.ops import ba  # noqa: E402
+from ssvio_tpu_torch import engine as eng  # noqa: E402
+from ssvio_tpu_torch import frontend as fe  # noqa: E402
+from ssvio_tpu_torch import map as mapmod  # noqa: E402
+from ssvio_tpu_torch.config import Settings  # noqa: E402
+from ssvio_tpu_torch.ops import ba, camera, se3  # noqa: E402
 from ssvio_tpu_torch.parallel import dist_ba  # noqa: E402
+import torch_tools as tools  # noqa: E402
 
 WARMUP, REPS = 2, 5
+ENGINE_REPS = 3          # profile_scaling.py's engine mode
 WORLDS = (1, 2, 4)
 WINDOW = 12              # profile_scaling.py's
 TIMEOUT = datetime.timedelta(minutes=10)
@@ -132,19 +149,143 @@ def _rank_main(rank: int, world: int, device: str, M: int, W: int,
         dist.destroy_process_group()
 
 
-def measure(world: int, device: str, M: int, W: int) -> dict:
-    """Start `world` ranks, wait for them, return rank 0's timing."""
+def engine_settings(M: int) -> Settings:
+    """profile_scaling.py's engine mode: 256x128 (fx 360), 256 features, M
+    landmarks, a window of 12, 2 detection octaves, every tracked frame
+    forced down the keyframe + BA branch."""
+    s = Settings()
+    fx = 360.0
+    cam = dataclasses.replace(s.cam_left, fx=fx, fy=fx, cx=128.0, cy=64.0)
+    s.cam_left, s.cam_right = cam, dataclasses.replace(cam)
+    s.image_width, s.image_height = 256, 128
+    s.baseline_fx = 0.54 * fx
+    s.max_features = 256
+    s.max_landmarks = M
+    s.max_window = 12
+    s.tracking_good = 10 ** 9
+    s.tracking_bad = -1
+    s.detect_octaves = 2
+    return s
+
+
+def engine_run(M: int, dev, mesh=None, reps: int = ENGINE_REPS):
+    """Time `Engine._step` from profile_scaling.py's seeded carry (numpy
+    seed 0: two random images, features at random positions linked to
+    landmarks 0..255, M random landmarks; TRACKING_GOOD) on `dev`, its BA
+    sharded over `mesh` when given (this process rank 0): one warm-up
+    step, then `reps`. Returns (ms of each step, the last step's carry)."""
+    s = engine_settings(M)
+    front = fe.Frontend(s, s.image_width, s.image_height, device=dev)
+    engine = eng.Engine(front, enable_backend=True, mesh=mesh)
+    rng = np.random.default_rng(0)
+
+    def t(a, dtype=torch.float32):
+        return torch.as_tensor(a, dtype=dtype, device=dev)
+    img0 = t(rng.uniform(0, 255, (128, 256)))
+    img1 = t(rng.uniform(0, 255, (128, 256)))
+    n = s.max_features
+    feat = fe.FeatState(
+        xy=t(np.stack([rng.uniform(20, 236, n), rng.uniform(20, 108, n)],
+                      -1)),
+        lm_slot=t(np.arange(n), torch.int32),
+        lm_gid=t(np.arange(n), torch.int32),
+        valid=torch.ones(n, dtype=torch.bool, device=dev),
+        octave=torch.zeros(n, dtype=torch.int32, device=dev))
+    lm_pos = t(np.stack([rng.uniform(-5, 5, M), rng.uniform(-2, 2, M),
+                         rng.uniform(5, 40, M)], -1))
+    m = mapmod.empty_map(s.max_window, M, dev)._replace(
+        lm_pos=lm_pos, lm_valid=torch.ones(M, dtype=torch.bool, device=dev),
+        lm_gid=t(np.arange(M), torch.int32),
+        lm_first_kf=torch.zeros(M, dtype=torch.int32, device=dev))
+    carry = eng.EngineCarry(front._build_pyramid(img0), feat,
+                            se3.identity(device=dev),
+                            se3.identity(device=dev), m, fe.TRACKING_GOOD)
+    times = []
+    with torch.no_grad():
+        for i in range(1 + reps):
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            c2, fr = engine._step(carry, img1, lambda: img1)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            if i:
+                times.append(1e3 * (time.perf_counter() - t0))
+    if fr.kf_slot < 0 or not fr.ran_ba:
+        raise RuntimeError("engine mode: the step took no keyframe + BA")
+    if engine.dist is not None:
+        engine.dist.close()
+    return times, c2
+
+
+def engine_rank(M: int, mesh, reps: int = ENGINE_REPS):
+    """This rank's part of the engine mode over `mesh`: rank 0 times the
+    engine step (engine_run) and returns (ms of each step, the last step's
+    carry); every other rank serves rank 0's sharded BAs until it is done
+    and returns None."""
+    if mesh.rank == 0:
+        return engine_run(M, mesh.device, mesh, reps)
+    rig = camera.StereoRig.from_settings(engine_settings(M), mesh.device)
+    il = rig.intr_left
+    dist_ba.serve(mesh, il.fx, il.fy, il.cx, il.cy, rig.baseline)
+    return None
+
+
+def _engine_rank_main(rank: int, world: int, device: str, M: int,
+                      workdir: str):
+    """A rank of the engine mode (engine_rank); rank 0 writes its timing
+    and its last step's poses and landmarks."""
+    torch.set_num_threads(1)
+    backend, _ = layout(world, device)
+    dev = torch.device("cpu")
+    if device != "cpu":
+        dev = torch.device("cuda", rank % torch.cuda.device_count())
+        torch.cuda.set_device(dev)
+    dist.init_process_group(backend, init_method=f"file://{workdir}/store",
+                            world_size=world, rank=rank, timeout=TIMEOUT)
+    try:
+        out = engine_rank(M, dist_ba.make_mesh(device=dev))
+        if out is not None:
+            times, c2 = out
+            np.savez(os.path.join(workdir, "carry.npz"),
+                     T_cw=c2.T_cw.cpu().numpy(),
+                     kf_pose=c2.m.kf_pose.cpu().numpy(),
+                     lm_pos=c2.m.lm_pos.cpu().numpy())
+            with open(os.path.join(workdir, "result.json"), "w") as f:
+                json.dump(dict(ms=float(np.median(times))), f)
+    finally:
+        dist.destroy_process_group()
+
+
+def measure(world: int, device: str, M: int, W: int,
+            engine: bool = False) -> dict:
+    """Start `world` ranks, wait for them, return rank 0's timing (engine
+    mode: and its last step's T_cw, kf_pose and lm_pos as numpy)."""
     with tempfile.TemporaryDirectory(prefix="ssvio_scaling_") as workdir:
-        mp.start_processes(_rank_main, args=(world, device, M, W, workdir),
-                           nprocs=world, start_method="spawn")
+        if engine:
+            mp.start_processes(_engine_rank_main,
+                               args=(world, device, M, workdir),
+                               nprocs=world, start_method="spawn")
+        else:
+            mp.start_processes(_rank_main,
+                               args=(world, device, M, W, workdir),
+                               nprocs=world, start_method="spawn")
         with open(os.path.join(workdir, "result.json")) as f:
-            return json.load(f)
+            out = json.load(f)
+        if engine:
+            with np.load(os.path.join(workdir, "carry.npz")) as z:
+                out.update({k: z[k] for k in z.files})
+        return out
 
 
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    p.add_argument("M", nargs="?", type=int, default=32768,
-                   help="landmark capacity (divisible by every world size)")
+    p.add_argument("M", nargs="?", type=int, default=None,
+                   help="landmark capacity (divisible by every world size; "
+                        "32768, with --engine 8192)")
+    p.add_argument("--engine", action="store_true",
+                   help="time the whole engine step (keyframe + BA "
+                        "branch) instead of the BA solve")
     p.add_argument("--device", default=None,
                    help="cpu, or cuda (the default; needs a CUDA device)")
     p.add_argument("--json", action="store_true",
@@ -156,11 +297,16 @@ def main(argv=None):
                            "--device cpu to run on the CPU")
     where = ("CPU" if device == "cpu" else
              f"{torch.cuda.device_count()} x {torch.cuda.get_device_name(0)}")
-    report = dict(M=args.M, W=WINDOW, device=where,
-                  reps=f"median of {REPS}", solve_ms={}, efficiency={},
-                  backend={}, shared_devices={})
+    card = tools.card_line(device if device == "cpu" else
+                               torch.device("cuda", 0))
+    print(card)
+    M = args.M or (8192 if args.engine else 32768)
+    what = "ms/engine-step (KF+BA branch)" if args.engine else "ms/solve"
+    report = dict(M=M, W=WINDOW, device=where, card=card, engine=args.engine,
+                  reps=f"median of {ENGINE_REPS if args.engine else REPS}",
+                  solve_ms={}, efficiency={}, backend={}, shared_devices={})
     for n in WORLDS:
-        r = measure(n, device, args.M, WINDOW)
+        r = measure(n, device, M, WINDOW, engine=args.engine)
         backend, shared = layout(n, device)
         base = report["solve_ms"].get("1", r["ms"] if n == 1 else None)
         eff = base / (n * r["ms"]) if base else float("nan")
@@ -171,10 +317,11 @@ def main(argv=None):
         if not args.json:
             note = (" (ranks share the GPU: collective cost, not scaling)"
                     if shared else "")
-            print(f"ranks={n} [{backend}, {where}]  {r['ms']:8.1f} ms/solve"
+            ratio = ("" if args.engine else
+                     f"  inlier_ratio={r['inlier_ratio']:.3f}")
+            print(f"ranks={n} [{backend}, {where}]  {r['ms']:8.1f} {what}"
                   f"  speedup={(base or float('nan')) / r['ms']:5.2f}x  "
-                  f"efficiency={100 * eff:5.1f}%  inlier_ratio="
-                  f"{r['inlier_ratio']:.3f}{note}", flush=True)
+                  f"efficiency={100 * eff:5.1f}%{ratio}{note}", flush=True)
     if args.json:
         print("SCALING " + json.dumps(report))
     return report

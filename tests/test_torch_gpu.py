@@ -847,3 +847,54 @@ def test_loopclosing_ingest_card_against_cpu():
     torch.testing.assert_close(out_g[9][1].cpu(), out_c[9][1], atol=1e-6,
                                rtol=0)
     assert int(out_c[9][0, 0]) == 2 and float(out_c[9][1, 0]) > 0.99
+
+
+# --------------------------------------------- the profiling tools (card)
+def _tool(name):
+    """A scripts/torch_*.py tool as a module (the tools import no jax)."""
+    import importlib
+    import os
+    import sys
+    scripts = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "scripts")
+    if scripts not in sys.path:
+        sys.path.insert(0, scripts)
+    return importlib.import_module(name)
+
+
+def test_transfer_tool_on_gpu():
+    """scripts/torch_profile_transfer.py on the card: every copy has a rate,
+    pinned memory is measured, and side-stream copies of the chunk the
+    prefetcher uploads (CHUNK pairs) overlap the port's step (a serialised
+    copy gives a share near 0)."""
+    _device()
+    r = _tool("torch_profile_transfer").main(["--reps", "3"])
+    assert r["card"] and r["device"].startswith("cuda")
+    for v in r["host_to_device"].values():
+        for way in ("pageable", "pinned"):
+            assert v[way]["ms"] > 0 and v[way]["gb_per_s"] > 0
+    assert r["readback"]["cpu_ms"] > 0 and r["readback"]["pinned_event_ms"] > 0
+    ov = r["overlap"]
+    assert ov["copy_ms"] > 0 and ov["step_ms"] > 0
+    assert len(ov["shares"]) == 3 and ov["share"] > 0.5
+
+
+def test_lk_kernels_tool_on_gpu(monkeypatch):
+    """scripts/torch_profile_lk_kernels.py on the card, its sweeps cut: the
+    profiler's device time of every launch is positive, more iterations of
+    the chain cost more, the hard flow steps to the cap."""
+    _device()
+    m = _tool("torch_profile_lk_kernels")
+    monkeypatch.setattr(m, "ITERS", (1, 30))
+    monkeypatch.setattr(m, "LIVE", (64, 512))
+    monkeypatch.setattr(m, "KERNELS", ("serial", "mm_f32", "patch"))
+    r = m.main(["--reps", "8"])
+    assert r["timer"].startswith("torch.profiler")
+    for k in r["kernels"].values():
+        assert all(x["ms"] > 0 for x in k["iters"] + k["live"]
+                   + k["per_level"])
+        assert k["iters"][1]["chain"] > k["iters"][0]["chain"] == 1
+        assert k["iters"][1]["ms"] > k["iters"][0]["ms"]
+        assert k["us_per_iter"] > 0
+        assert k["flow"]["hard"]["chain"] == 30
+    assert len(r["kernels"]["serial"]["per_level"]) == 4

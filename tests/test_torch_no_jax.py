@@ -1,8 +1,8 @@
 """The port stands alone: importing `ssvio_tpu_torch` (every module),
-chip_smoke.py's module-level code and the scripts the card runs
-(scripts/torch_run_kitti.py, scripts/torch_longrun.py,
-scripts/torch_profile_scaling.py) needs neither jax,
-PyYAML, OpenCV, matplotlib nor the JAX package, and neither does building
+chip_smoke.py's module-level code and every script of the port
+(scripts/torch_*.py, found by glob, so a new one is held too) needs
+neither jax, PyYAML, OpenCV, matplotlib nor the JAX package, and neither
+does building
 the loop-closing System (the engine's descriptor branch, the LoopClosing
 class, interop's loop_closing). The machine with the GPU has none of them.
 
@@ -11,6 +11,7 @@ Runs in a fresh interpreter in which `jax`, `jaxlib`, `yaml`, `cv2`,
 ImportError.
 """
 
+import glob
 import os
 import subprocess
 import sys
@@ -20,7 +21,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BLOCKED = '("jax", "jaxlib", "yaml", "cv2", "matplotlib", "ssvio_tpu")'
 
 _CHILD = r"""
-import importlib, importlib.util, pkgutil, sys
+import glob, importlib, importlib.util, os, pkgutil, sys
 BLOCKED = %s
 for name in BLOCKED:
     sys.modules[name] = None          # import of a None entry raises
@@ -29,16 +30,15 @@ mods = [m.name for m in pkgutil.walk_packages(ssvio_tpu_torch.__path__,
                                               "ssvio_tpu_torch.")]
 for m in mods:
     importlib.import_module(m)
-for name, path in (("chip_smoke", "chip_smoke.py"),
-                   ("torch_run_kitti", "scripts/torch_run_kitti.py"),
-                   ("torch_longrun", "scripts/torch_longrun.py"),
-                   ("torch_profile_scaling",
-                    "scripts/torch_profile_scaling.py")):
+scripts = sorted(glob.glob("scripts/torch_*.py"))
+for path in ["chip_smoke.py"] + scripts:
+    name = os.path.basename(path)[:-3]
     spec = importlib.util.spec_from_file_location(name, path)
     spec.loader.exec_module(importlib.util.module_from_spec(spec))
 loaded = [k for k, v in sys.modules.items() if v is not None and (
     k.split(".")[0] in BLOCKED[:-1] or k == "ssvio_tpu"
     or k.startswith("ssvio_tpu."))]
+print("SCRIPTS", len(scripts))
 print("MODULES", len(mods), "LOADED", loaded)
 """ % BLOCKED
 
@@ -52,6 +52,8 @@ def test_port_and_chip_smoke_import_without_jax_or_yaml():
     n_mods = int(line.split()[1])
     assert n_mods >= 15, line                   # every port module imported
     assert line.endswith("LOADED []"), line
+    n_scripts = len(glob.glob(os.path.join(REPO, "scripts", "torch_*.py")))
+    assert f"SCRIPTS {n_scripts}" in out.stdout and n_scripts >= 19
 
 
 _CHILD_LOOP = r"""

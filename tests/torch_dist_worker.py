@@ -1,5 +1,6 @@
 """A rank of the port's multi-process tests (tests/test_torch_dist_ba.py,
-tests/test_torch_multihost.py), and `launch`, which starts them.
+tests/test_torch_multihost.py, tests/test_torch_profile_tools.py), and
+`launch`, which starts them.
 
 Usage: python tests/torch_dist_worker.py <job.pkl> <rank>
 
@@ -146,7 +147,21 @@ def mode_multihost(job, mesh):
                 size=mesh.size, rank=mesh.rank)
 
 
-MODES = dict(ba=mode_ba, system=mode_system, multihost=mode_multihost)
+def mode_engine(job, mesh):
+    """scripts/torch_profile_scaling.py's engine mode at job["M"], one
+    timed step: rank 0 returns its last step's pose, keyframe poses and
+    landmarks, the others serve."""
+    import torch_profile_scaling
+    out = torch_profile_scaling.engine_rank(job["M"], mesh, reps=1)
+    if out is None:
+        return None
+    c2 = out[1]
+    return dict(T_cw=_np(c2.T_cw), kf_pose=_np(c2.m.kf_pose),
+                lm_pos=_np(c2.m.lm_pos))
+
+
+MODES = dict(ba=mode_ba, system=mode_system, multihost=mode_multihost,
+             engine=mode_engine)
 
 
 def main():
