@@ -40,6 +40,16 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    the plain versions) and its kernel's widest window (at WIDE_LEVEL; mm
    with _mm_tight); kernel #2's widest window is held in phase 3, at
    RobotCar level 0.
+Phases 4-11 run the System's default path: the tracking branch of every
+tracked frame replays the engine's tracking graph (graphs.TrackGraph,
+one CUDA graph of the pyramid, the LK kernels and the pose-only LM,
+captured at the System's first tracked frame; the keyframe branch runs
+eagerly). Their launch checks count what the statuses imply plus the
+launches of each graph's warm-up (graphs.WARMUP_LAUNCHES: one eager run
+before the capture), and the graphs' replays must equal the tracked
+frames (graphs.REPLAYS; _check_replays). Each phase closes its Systems
+(System.close releases a graph's memory pool).
+
 4. the run_step path: System(device="cuda") with the bench configuration
    (512 features, 8192 landmarks, window 16, 8 FAST octaves, LK 11x11 / 3
    levels / 30 iterations, local BA on, loop closing off) runs 96 frames of
@@ -54,6 +64,19 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    bench.py drives the JAX package, then finish(). Same checks as phase 4
    with both kernels' launch counts; the same frames through run_step must
    give the same statuses and keyframes and trajectories within 1e-3 m.
+5b. graph against eager: phase 4's frames through run_step and phase 5's
+   through the prefetcher and pipelined chunks, each in turns on a new
+   System eager (System(eager=True): the tracking branch op by op),
+   graph, graph, eager, every graph call (copy-in, replay, copy-out) under
+   torch.cuda.set_sync_debug_mode("error"), so a call on its way that
+   waits for the device raises. Phase 4's and 5's checks on each run
+   (launches as the statuses imply, replays equal to the tracked frames
+   on the graph path and none on the eager one); statuses and keyframe
+   counts equal across the four runs, positions within GRAPH_VS_EAGER_M
+   between the paths (the largest differences printed). Then the
+   pose-only LM on the last tracked frame of the first graph run, eager
+   and replayed from a graph of it (4 x 10 iterations, a fixed trip):
+   CUDA-event ms of each, beside ms/frame of every run.
 6. the flavours: phase 4's frames through run_step once for each of sw,
    ymm, pkmm, mm and mm_f32 (bench configuration with lk_kernel set). Same
    checks as phase 4, with the flavour's kernel launched as often as the
@@ -158,10 +181,11 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    in the chrome trace equal lk_cuda.LAUNCHES' delta over the chunk, the
    busy share over the untraced run of the chunk and over the traced one
    both in (0, 1], the top ops' time within the traced window);
-   the ablation over PROFILE_FRAMES frames (its full variant's statuses
-   equal to run_step's, positions within its POS_TOL_M); each stage alone
-   (torch_profile_stages: every LK stage launches kernel #1 once a level:
-   lk.track 3, _track_step 2 x 3, _keyframe_step 2 x 4); the engine step
+   the ablation over PROFILE_FRAMES frames, eager (its full variant's
+   statuses equal to run_step's, positions within its POS_TOL_M); each
+   stage alone (torch_profile_stages: every LK stage launches kernel #1
+   once a level: lk.track 3, _track_step 2 x 3, _keyframe_step 2 x 4, the
+   tracking graph's replay 2 x 3; the LM's graph none); the engine step
    per frame over PROFILE_FRAMES frames and in chunks of half as many
    (tracking and keyframe frames both seen); transfers (pinned and
    pageable GB/s above 0, side-stream copies overlapping the port's step
@@ -194,7 +218,7 @@ import torch
 import torch.distributed as dist
 
 from ssvio_tpu_torch import frontend as fe
-from ssvio_tpu_torch import interop, loopclosing
+from ssvio_tpu_torch import graphs, interop, loopclosing
 from ssvio_tpu_torch.config import (Settings, bench_loop_settings,
                                     bench_settings,
                                     robotcar_xb3_wide_settings)
@@ -248,6 +272,8 @@ ATE_MAX_M = 0.5          # the bound of tests/test_system_e2e.py
 SCENES = {"kitti_bench": (dict(), 0.6),
           "robotcar_xb3_wide": (dict(wall_x=4.0, ceiling_y=-5.0), 0.4)}
 CHUNK_VS_STEP_M = 1e-3   # run_chunk vs run_step on one card: the same ops
+GRAPH_VS_EAGER_M = 1e-5  # a graph replays the eager path's kernels in its
+                         # order on one stream: equal bits expected
                          # in the same order; atomics may reorder sums
 # mm (bf16): its windows carry about half an intensity unit of rounding
 # noise, and a one-ulp difference between kernel and plain version (how the
@@ -977,20 +1003,35 @@ def _check_run(tag, sys_, after, est, poses, launches, expected):
 
 
 def _launches():
-    return dict(lk_level=lk_cuda.LAUNCHES, lk_patch=lk_patch_cuda.LAUNCHES,
-                **lkv.LAUNCHES)
+    return graphs.launch_counts()
 
 
 def _zero_launches():
-    lk_cuda.LAUNCHES = 0
-    lk_patch_cuda.LAUNCHES = 0
-    for k in lkv.LAUNCHES:
-        lkv.LAUNCHES[k] = 0
+    """Every kernel's launch counter, the graphs' replays and their
+    warm-ups' launches to 0 (graphs.zero_counts)."""
+    graphs.zero_counts()
 
 
-def _expect(**counts):
-    """Every kernel's launch count: `counts`, and 0 for the others."""
-    return dict(dict.fromkeys(_launches(), 0), **counts)
+def _expect(warmups=None, **counts):
+    """Every kernel's launch count: `counts`, and 0 for the others, plus
+    the launches of the warm-ups of the tracking graphs built since the
+    counters were zeroed (real launches, once a graph, before its
+    capture): `warmups`, by default graphs.WARMUP_LAUNCHES."""
+    warm = graphs.WARMUP_LAUNCHES if warmups is None else warmups
+    want = dict(dict.fromkeys(_launches(), 0), **counts)
+    return {k: v + warm.get(k, 0) for k, v in want.items()}
+
+
+def _check_replays(tag, imp, eager=False, replays=None):
+    """Every tracked frame since the counters were zeroed replayed a
+    tracking graph (none on the eager path): `replays`, by default
+    graphs.REPLAYS."""
+    got = graphs.REPLAYS if replays is None else replays
+    want = 0 if eager else imp["n_tracked"]
+    if got != want:
+        raise AssertionError(f"{tag}: {got} tracking-graph replays for "
+                             f"{imp['n_tracked']} tracked frames "
+                             f"({'eager' if eager else 'graph'} path)")
 
 
 def _render(tag, s, sys_, dev):
@@ -1031,6 +1072,8 @@ def phase_run_step(s: Settings, dev):
     _, est = sys_.frame_trajectory()
     res = _check_run("run_step", sys_, after, est, poses, launches,
                      _expect(**imp["level0_on_level"]))
+    _check_replays("run_step", imp)
+    sys_.close()
     res.update(launches=launches, median_ms_per_frame=float(np.median(ms)),
                median_ms_tracked_good=float(np.median(
                    [m for m, b, a in zip(ms, before, after)
@@ -1061,6 +1104,8 @@ def phase_chunks(s: Settings, dev) -> dict:
     _, est = sys_.frame_trajectory()
     res = _check_run("run_chunk", sys_, after, est, poses, launches,
                      _expect(**imp["level0_on_patch"]))
+    _check_replays("run_chunk", imp)
+    sys_.close()
     res.update(launches=launches, n_init_attempts=imp["n_init_attempts"],
                n_tracked=imp["n_tracked"],
                chunk_ms=chunk_ms, median_ms_per_chunk=float(np.median(chunk_ms)),
@@ -1077,6 +1122,8 @@ def phase_chunks(s: Settings, dev) -> dict:
     if _launches() != _expect(**imp2["level0_on_patch"]):
         raise AssertionError(f"run_step at 1280x960: launches {_launches()} "
                              f"!= {imp2['level0_on_patch']}")
+    _check_replays("run_step at 1280x960", imp2)
+    ref.close()
     _, est2 = ref.frame_trajectory()
     d = float(np.abs(est[:, :, 3] - est2[:, :, 3]).max())
     print(f"  run_step on the same frames: median {np.median(ms):.2f} "
@@ -1090,7 +1137,7 @@ def phase_chunks(s: Settings, dev) -> dict:
                              f"{d} m > {CHUNK_VS_STEP_M}")
     res.update(run_step_median_ms_per_frame=float(np.median(ms)),
                chunk_vs_step_max_m=d)
-    return res
+    return res, dict(L=L, R=R, ts=ts, poses=poses, after=after, est=est)
 
 
 def _drive_chunks(sys_, L, R, ts):
@@ -1123,6 +1170,153 @@ def _drive_chunks(sys_, L, R, ts):
             total_s)
 
 
+@contextlib.contextmanager
+def _sync_free_replays():
+    """Every tracking-graph call (its copy-in, replay and copy-out) under
+    torch.cuda.set_sync_debug_mode("error"): a call on its way that waits
+    for the device raises."""
+    call = graphs.StaticGraph.__call__
+
+    def guarded(self, *args):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return call(self, *args)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    graphs.StaticGraph.__call__ = guarded
+    try:
+        yield
+    finally:
+        graphs.StaticGraph.__call__ = call
+
+
+def _lm_ms(sys_) -> dict:
+    """The pose-only LM (4 x 10 iterations, a fixed trip) on the System's
+    last tracked frame: its features against their landmarks from the
+    pose, eager and replayed from a CUDA graph of it (graphs.StaticGraph),
+    CUDA-event ms a call; the two must agree (poses within
+    GRAPH_VS_EAGER_M, equal inliers)."""
+    f, feat, m = sys_.frontend, sys_.feat, sys_.map
+    args = (sys_.T_cw, m.lm_pos[torch.clamp(feat.lm_slot, min=0).long()],
+            feat.xy, feat.valid)
+
+    def lm(T, p_w, uv, valid):
+        return ba.pose_only_optimize(T, p_w, uv, valid, f._fx, f._fy, f._cx,
+                                     f._cy)
+
+    graph = graphs.StaticGraph(lm, *args)
+    want, got = lm(*args), graph(*args)
+    d = float((want.T_cw - got.T_cw).abs().max())
+    if not d <= GRAPH_VS_EAGER_M or not torch.equal(want.inlier, got.inlier):
+        raise AssertionError(f"the pose-only LM's graph differs from its "
+                             f"eager call: pose by {d}, inliers "
+                             f"{int(want.n_inliers)} / {int(got.n_inliers)}")
+    res = dict(eager_ms=_time_ms(lambda: lm(*args), reps=5, warmup=1),
+               graph_ms=_time_ms(lambda: graph(*args), reps=20, warmup=2),
+               iterations=40, n_valid=int(feat.valid.sum()),
+               graph_vs_eager=d)
+    graph.close()
+    return res
+
+
+def _turns(tag, run) -> list:
+    """`run(eager)` in turns eager, graph, graph, eager (each a new
+    System), every graph replay sync-free (_sync_free_replays). Statuses
+    and keyframe counts must be equal across the four, and positions
+    within GRAPH_VS_EAGER_M between the paths; the differences are
+    printed."""
+    runs = []
+    for eager in (True, False, False, True):
+        with _sync_free_replays():
+            runs.append(run(eager))
+    e1, g1, g2, e2 = runs
+    diff = {name: float(np.abs(a["est"][:, :, 3] - b["est"][:, :, 3]).max())
+            for name, a, b in (("graph_vs_eager", g1, e1),
+                               ("graph2_vs_eager2", g2, e2),
+                               ("graph_vs_graph", g1, g2),
+                               ("eager_vs_eager", e1, e2))}
+    ms = [r["ms_per_frame"] for r in runs]
+    print(f"  {tag}: ms/frame eager {ms[0]:.2f}, graph {ms[1]:.2f}, graph "
+          f"{ms[2]:.2f}, eager {ms[3]:.2f}; keyframes "
+          f"{[r['n_keyframes'] for r in runs]}; largest position "
+          "differences (m) " + json.dumps(diff))
+    if any(r["after"] != e1["after"] or r["n_keyframes"] != e1["n_keyframes"]
+           for r in runs):
+        raise AssertionError(f"{tag}: the graph and eager paths disagree "
+                             "on statuses or keyframes")
+    if not max(diff.values()) <= GRAPH_VS_EAGER_M:
+        raise AssertionError(f"{tag}: positions differ by {diff} m > "
+                             f"{GRAPH_VS_EAGER_M} m")
+    return [dict({k: v for k, v in r.items() if k not in ("est", "after")},
+                 eager=eager) for r, eager in zip(runs, (True, False, False,
+                                                         True))], diff
+
+
+def phase_graph_vs_eager(kitti: Settings, robotcar: Settings, dev,
+                         frames: dict, chunk_frames: dict, card: str) -> dict:
+    """Phase 5b (module docstring)."""
+    print("graph against eager: phase 4's frames through run_step and "
+          "phase 5's in pipelined chunks, in turns eager, graph, graph, "
+          "eager")
+    t_phase = time.perf_counter()
+    out = dict(launches=dict.fromkeys(_launches(), 0))
+    lm = {}
+
+    def counted(tag, sys_, before, after, est, poses, eager, imp_key):
+        launches = _launches()
+        imp = _implied_launches(before, after)
+        _check_run(tag, sys_, after, est, poses, launches,
+                   _expect(**imp[imp_key]))
+        _check_replays(tag, imp, eager)
+        for k, v in launches.items():
+            out["launches"][k] += v
+
+    def kitti_run(eager):
+        tag = f"run_step [{'eager' if eager else 'graph'}]"
+        sys_ = System(kitti, enable_backend=True, enable_loop_closing=False,
+                      device=dev, eager=eager)
+        _zero_launches()
+        before, after, ms = _run_steps(
+            sys_, frames["L"], frames["R"],
+            [i / kitti.fps for i in range(len(frames["L"]))])
+        _, est = sys_.frame_trajectory()
+        counted(tag, sys_, before, after, est, frames["poses"], eager,
+                "level0_on_level")
+        if not eager and not lm:
+            lm.update(_lm_ms(sys_))
+        sys_.close()
+        return dict(after=after, est=est, ms_per_frame=float(np.median(ms)),
+                    n_keyframes=sys_.stats["n_keyframes"])
+
+    def robotcar_run(eager):
+        tag = f"run_chunk [{'eager' if eager else 'graph'}]"
+        sys_ = System(robotcar, enable_backend=True,
+                      enable_loop_closing=False, device=dev, eager=eager)
+        _zero_launches()
+        after, chunk_ms, total_s = _drive_chunks(
+            sys_, chunk_frames["L"], chunk_frames["R"], chunk_frames["ts"])
+        _, est = sys_.frame_trajectory()
+        counted(tag, sys_, [fe.INITING] + after[:-1], after, est,
+                chunk_frames["poses"], eager, "level0_on_patch")
+        sys_.close()
+        return dict(after=after, est=est,
+                    ms_per_frame=float(np.median(chunk_ms)) / CHUNK,
+                    total_s=total_s, n_keyframes=sys_.stats["n_keyframes"])
+
+    out["run_step"], out["run_step_diff_m"] = _turns(
+        "run_step [kitti_bench]", kitti_run)
+    out["run_chunk"], out["run_chunk_diff_m"] = _turns(
+        "run_chunk [robotcar_xb3_wide]", robotcar_run)
+    out["pose_only_lm"] = lm
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"  [{card}] pose-only LM on the last tracked frame "
+          f"({lm['n_valid']} features, {lm['iterations']} iterations): "
+          f"eager {lm['eager_ms']:.3f} ms, graph {lm['graph_ms']:.3f} ms "
+          f"(CUDA events); phase 5b {out['wall_s']:.1f} s")
+    return out
+
+
 def phase_flavours(s: Settings, dev, serial: dict, t_start: float) -> dict:
     """Phase 6: phase 4's frames through run_step on each flavour."""
     est_s = len(FLAVOURS) * serial["seconds"]
@@ -1147,6 +1341,8 @@ def phase_flavours(s: Settings, dev, serial: dict, t_start: float) -> dict:
                          serial["poses"][:n], launches,
                          _expect(**{counter: imp["level0_on_level"]
                                     ["lk_level"]}))
+        _check_replays(f"run_step [{flavour}]", imp)
+        sys_.close()
         res.update(frames=n, launches=launches,
                    median_ms_per_frame=float(np.median(ms)),
                    status_diff_vs_serial=sum(
@@ -1281,6 +1477,8 @@ def phase_place_recognition(s: Settings, dev, card: str) -> dict:
     _, est = sys_.frame_trajectory()
     res = _check_run("place recognition run", sys_, after, est, poses,
                      launches, _expect(**imp["level0_on_level"]))
+    _check_replays("place recognition run", imp)
+    sys_.close()
     res.update(launches=launches, frames=n,
                median_ms_per_frame=float(np.median(ms)))
     print("  run_step: " + json.dumps(res))
@@ -1608,6 +1806,7 @@ def phase_loop_system(dev, card: str) -> dict:
             raise AssertionError(f"loop system [{tag}]: kernel launches "
                                  f"{launches} != {imp['level0_on_level']} "
                                  "implied by the statuses")
+        _check_replays(f"loop system [{tag}]", imp)
         if not np.all(np.isfinite(est)) or est.shape != (n, 3, 4):
             raise AssertionError(f"loop system [{tag}]: trajectory not "
                                  "finite / wrong shape")
@@ -1695,6 +1894,8 @@ def phase_loop_system(dev, card: str) -> dict:
     if reloc["launches"] != _expect(**imp["level0_on_level"]):
         raise AssertionError(f"relocalization: kernel launches "
                              f"{reloc['launches']} != {imp['level0_on_level']}")
+    _check_replays("relocalization", imp)
+    sys_on.close()
     out["reloc"] = reloc
     out["launches"] = {name: out["loop_on"]["launches"][name]
                        + out["loop_off"]["launches"][name]
@@ -1747,7 +1948,9 @@ def _driver_pass(tag, seq, out, dev, *flags):
     _record_statuses(sys_, log)
     _zero_launches()
     res = driver.run(sys_, args)
-    res.update(launches=_launches(), sys=sys_, **log)
+    res.update(launches=_launches(), replays=graphs.REPLAYS,
+               warmups=dict(graphs.WARMUP_LAUNCHES), sys=sys_, **log)
+    sys_.close()
     return res
 
 
@@ -1758,10 +1961,12 @@ def _check_driver_pass(tag, res):
     if len(after) != DRIVER_FRAMES or n_lost:
         raise AssertionError(f"driver [{tag}]: {len(after)} frames, "
                              f"{n_lost} LOST")
-    if res["launches"] != _expect(lk_level=imp["level0_on_level"]["lk_level"]):
+    if res["launches"] != _expect(
+            res["warmups"], lk_level=imp["level0_on_level"]["lk_level"]):
         raise AssertionError(f"driver [{tag}]: kernel launches "
                              f"{res['launches']} != {imp['level0_on_level']} "
                              "implied by the statuses")
+    _check_replays(f"driver [{tag}]", imp, replays=res["replays"])
     if res["ate"] is None or not res["ate"]["rmse"] < ATE_MAX_M:
         raise AssertionError(f"driver [{tag}]: keyframe ATE {res['ate']} "
                              f"(>= {ATE_MAX_M} m, or no keyframe)")
@@ -1923,6 +2128,8 @@ def _checkpoint_check(s, L, R, work, dev) -> dict:
                max_position_diff_m=d, tol_m=CKPT_TOL_M,
                launches=_launches())
     print("  checkpoint: " + json.dumps(res))
+    cont.close()
+    resumed.close()
     if (after_c != after_r or fe.LOST in after_c
             or res["n_keyframes"][0] != res["n_keyframes"][1]
             or tc.shape != tr.shape or not d <= CKPT_TOL_M):
@@ -2026,6 +2233,7 @@ def _mesh_system(s, mesh, frames, dev) -> dict:
     _, est = sys_.frame_trajectory()
     res = _check_run("dist System", sys_, after, est, poses, launches,
                      _expect(lk_level=imp["level0_on_level"]["lk_level"]))
+    _check_replays("dist System", imp)
     d = float(np.abs(est[:, :, 3] - frames["est"][:, :, 3]).max())
     res.update(launches=launches, n_dist_ba=sys_.stats["n_dist_ba"],
                served=int(served.item()), ms_per_frame=1e3 * wall / len(L),
@@ -2123,7 +2331,9 @@ def _check_trace(tr) -> None:
 
 def _check_stages(st) -> None:
     want = {"build_pyramid": {}, "lk.track fwd": {"lk_level": 3},
-            "track_step": {"lk_level": 6}, "keyframe_step": {"lk_level": 8}}
+            "track_step": {"lk_level": 6}, "keyframe_step": {"lk_level": 8},
+            "track_frame graph": {"lk_level": 6},
+            "pose_only_optimize graph": {}}
     got = {k: st["stages"][k]["launches_per_call"] for k in want}
     if got != want:
         raise AssertionError(f"stages: launches a call {got} != {want}")
@@ -2229,7 +2439,9 @@ def main() -> None:
         t0 = time.perf_counter()
         step, frames = phase_run_step(kitti, dev)
         frames["seconds"] = time.perf_counter() - t0
-        chunk = phase_chunks(robotcar, dev)
+        chunk, chunk_frames = phase_chunks(robotcar, dev)
+        turns = phase_graph_vs_eager(kitti, robotcar, dev, frames,
+                                     chunk_frames, card)
         place = phase_place_recognition(kitti, dev, card)
         loop8 = phase_loop_system(dev, card)
         drive = phase_driver(dev, card)
@@ -2245,6 +2457,7 @@ def main() -> None:
         table.append(dict(
             name=name, route="cuda", **meta,
             launches=(step["launches"][name] + chunk["launches"][name]
+                      + turns["launches"][name]
                       + place["launches"][name] + loop8["launches"][name]
                       + drive["launches"][name]
                       + dist_res["launches"][name]

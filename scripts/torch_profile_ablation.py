@@ -24,6 +24,11 @@ The full variant is checked against `System.run_step` on the same frames
 from the same state: equal statuses, positions within POS_TOL_M (the same
 step; BA's atomics may reorder sums on a GPU). A mismatch raises.
 
+The System runs eagerly (`System(eager=True)`): the variants are pieces
+of the step called one by one, and the full variant is held against the
+same path; the tracking graph (graphs.py) is timed by
+torch_profile_engine.py and torch_profile_stages.py.
+
 It runs on the current CUDA device unless --device names another
 (--device cpu for the CPU); without a CUDA device and without --device it
 raises.
@@ -108,7 +113,7 @@ def check_full(s, dev, carry, imgs_l, imgs_r, outs) -> dict:
     and inverted on the host alike (inverting one [3, 4] pose on the card
     and a stack of them can round a position one ulp apart)."""
     ref = System(s, enable_backend=True, enable_loop_closing=False,
-                 device=dev)
+                 device=dev, eager=True)
     ref._install(carry)
     st, T_ref = [], []
     for a, b in zip(imgs_l, imgs_r):
@@ -138,7 +143,9 @@ def main(argv=None) -> dict:
     s = tpe.settings()
     K = args.chunk
     system = System(s, enable_backend=True, enable_loop_closing=False,
-                    device=dev)
+                    device=dev, eager=True)
+    print(f"tracking path: {system._engine.tracking_path} (pieces of the "
+          "step turned on one by one)")
     _, L, R = tpe.bench_frames(s, K + 1, dev, (system.h, system.w))
     out = {}
     with torch.no_grad():
@@ -158,6 +165,7 @@ def main(argv=None) -> dict:
     print(f"full vs run_step: statuses equal, max position difference "
           f"{check['max_position_diff_m']:.3g} m")
     res = dict(card=card, device=str(dev), chunk=K, reps=args.reps,
+               path=system._engine.tracking_path,
                variants=out, full_vs_run_step=check)
     print("ABLATION " + json.dumps(res))
     return res

@@ -6,7 +6,11 @@ Renders the bench's straight sequence on the device (world seed 4, 0.6 m
 a frame, yaw 0.002 rad a frame; `bench_settings()`: 1241x376, 512
 features, 8192 landmarks) and runs it through `Engine._step` one frame at
 a time from a fresh carry, the device synchronised after each frame:
-tracking frames and keyframe frames apart (median and p90 ms). Then the
+tracking frames and keyframe frames apart (median and p90 ms). The
+engine runs its default path, the tracking branch replayed from a CUDA
+graph on a card, or with --eager op by op (`path` in the result); two
+frames run first from the fresh carry (the second builds the graph), so
+no timed frame captures it. Then the
 frames after the first chunk again, through `Engine.run_chunk` in chunks
 from the state the per-frame pass had there: ms a frame. Every time is the host clock around work that ends
 synchronised. It runs on the current CUDA device unless --device names
@@ -14,7 +18,7 @@ another (--device cpu for the CPU); without a CUDA device and without
 --device it raises.
 
 Usage: python scripts/torch_profile_engine.py [--frames 48] [--chunk 8]
-           [--device cpu]
+           [--eager] [--device cpu]
 
 `bench_frames` renders the sequence for the other profiling tools, and
 `steady_chunk` warms a System on it.
@@ -87,6 +91,9 @@ def main(argv=None) -> dict:
     p.add_argument("--frames", type=int, default=48)
     p.add_argument("--chunk", type=int, default=8,
                    help="frames a chunk (at most half of --frames)")
+    p.add_argument("--eager", action="store_true",
+                   help="run the tracking branch op by op, not through "
+                        "its CUDA graph")
     p.add_argument("--device", default=None,
                    help="torch device (default: the current CUDA device)")
     args = p.parse_args(argv)
@@ -98,12 +105,14 @@ def main(argv=None) -> dict:
     s = settings()
     n, K = args.frames, args.chunk
     sys_ = System(s, enable_backend=True, enable_loop_closing=False,
-                  device=dev)
+                  device=dev, eager=args.eager)
     engine = sys_._engine
+    print(f"tracking path: {engine.tracking_path}")
     carry = eng.fresh_carry(s, sys_.frontend, sys_.map)
     _, L, R = bench_frames(s, n, dev, (sys_.h, sys_.w))
     with torch.no_grad():
-        engine._step(carry, L[0], lambda: R[0])        # warm-up
+        c = engine._step(carry, L[0], lambda: R[0])[0]        # warm-up
+        engine._step(c, L[1], lambda: R[1])
         tools.synchronize(dev)
         c, frames = carry, []
         for i in range(n):
@@ -124,7 +133,8 @@ def main(argv=None) -> dict:
             chunk_ms.append(1e3 * (time.perf_counter() - t0))
     track = [t for t, kf, st in frames if not kf and st != fe.INITING]
     kf = [t for t, k, _ in frames if k]
-    res = dict(card=card, device=str(dev), frames=n,
+    res = dict(card=card, device=str(dev), path=engine.tracking_path,
+               frames=n,
                n_keyframes=len(kf), n_tracking=len(track),
                statuses=[st for _, _, st in frames],
                frame_ms=[t for t, _, _ in frames],

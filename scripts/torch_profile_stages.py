@@ -8,7 +8,11 @@ observations) at its settings (Settings() with 512 features and 8192
 landmarks: 1241x376 padded to 1248x384), it times `_build_pyramid`,
 `_track_step`, `lk.track` forward, `ba.pose_only_optimize`,
 `_keyframe_step`, `fast.detect_grid` and `local_ba` (on the window the
-keyframe step leaves): the median of `--reps` calls (local BA 5), each
+keyframe step leaves), each called op by op, then the tracking branch as
+the engine runs it by default, `Frontend.track_frame` (undistortion,
+pyramid, `_track_step`) replayed from its CUDA graph
+(graphs.TrackGraph), and `pose_only_optimize` replayed from one
+(graphs.StaticGraph; on the CPU both run uncaptured): the median of `--reps` calls (local BA 5), each
 timed by CUDA events on a CUDA device (profiling.timeit), and the kernel
 launches one call makes. It runs on the current CUDA device unless
 --device names another (--device cpu for the CPU); without a CUDA device
@@ -32,6 +36,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from ssvio_tpu_torch import frontend as fe  # noqa: E402
+from ssvio_tpu_torch import graphs  # noqa: E402
 from ssvio_tpu_torch import map as mapmod  # noqa: E402
 from ssvio_tpu_torch.config import Settings  # noqa: E402
 from ssvio_tpu_torch.ops import ba, fast, lk, se3  # noqa: E402
@@ -93,6 +98,14 @@ def stages(front: fe.Frontend, inp: dict) -> "OrderedDict[str, callable]":
     occ = torch.zeros((front.h, front.w), dtype=torch.bool, device=dev)
     m2 = front._keyframe_step(pyr, pyr2, feat, eye, m)[1]
     prob = mapmod.ba_problem_from_map(m2)
+    track_args = (pyr, feat, eye, eye, m.lm_pos, m.lm_valid, m.lm_gid)
+    track_graph = graphs.TrackGraph(front, t["img2"], *track_args)
+
+    def lm(T, p_w, uv, valid):
+        return ba.pose_only_optimize(T, p_w, uv, valid, front._fx, front._fy,
+                                     front._cx, front._cy)
+    lm_args = (eye, t["lm_pos"][:n], t["uv"], feat.valid)
+    lm_graph = graphs.StaticGraph(lm, *lm_args)
     return OrderedDict([
         ("build_pyramid", lambda: front._build_pyramid(t["img"])),
         ("track_step", lambda: front._track_step(
@@ -113,6 +126,8 @@ def stages(front: fe.Frontend, inp: dict) -> "OrderedDict[str, callable]":
         ("local_ba", lambda: ba.local_ba(prob, front._fx, front._fy,
                                          front._cx, front._cy,
                                          front._baseline)),
+        ("track_frame graph", lambda: track_graph(t["img2"], *track_args)),
+        ("pose_only_optimize graph", lambda: lm_graph(*lm_args)),
     ])
 
 

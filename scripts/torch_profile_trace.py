@@ -23,7 +23,9 @@ device ms over its own span, is returned beside it with the stretch,
 traced span / untraced span. The launch counters' delta over the traced
 chunk is returned beside the trace's counts: the profiler can drop events
 on a long trace, so the two are held against each other (kernel #1's
-events are named `level_kernel`).
+events are named `level_kernel`; the profiler reports the kernels a CUDA
+graph launches, each as its own event). The System runs its default
+path, the tracking graph on a card (`path` in the result).
 
 It runs on the current CUDA device unless --device names another
 (--device cpu for the CPU; there the trace holds no device events);
@@ -84,6 +86,7 @@ def main(argv=None) -> dict:
                                                 profiling.TRACE_FILE))
     traced_k1 = sum(v for k, v in summ["launches"].items() if KERNEL1 in k)
     res = dict(card=card, device=str(dev), chunk=K,
+               path=sys_._engine.tracking_path,
                trace=os.path.join(args.out, profiling.TRACE_FILE),
                window_ms=summ["window_ms"], untraced_ms=untraced_ms,
                stretch=summ["window_ms"] / untraced_ms,
@@ -95,6 +98,7 @@ def main(argv=None) -> dict:
                top_ops=summ["top_ops"], launches=summ["launches"],
                counter_launches=counted, trace_kernel1=traced_k1,
                statuses=[int(sys_.status)])
+    print(f"tracking path: {res['path']}")
     print(f"chunk of {K}: untraced {untraced_ms:.1f} ms, traced "
           f"{summ['window_ms']:.1f} ms (stretch {res['stretch']:.3f}); "
           f"device busy {summ['device_ms']:.1f} ms: busy share "

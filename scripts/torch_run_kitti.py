@@ -202,7 +202,8 @@ def run(system: System, args) -> dict:
     left, right, ts = kitti.load_image_paths_and_timestamps(
         args.kitti_dataset_path)
     n = len(ts) if not args.max_frames else min(args.max_frames, len(ts))
-    print(f"[run_kitti] {n} stereo frames from {args.kitti_dataset_path}")
+    print(f"[run_kitti] {n} stereo frames from {args.kitti_dataset_path}; "
+          f"tracking: {system._engine.tracking_path}")
 
     gt = kitti.load_kitti_gt_poses(args.gt_poses) if args.gt_poses else None
 

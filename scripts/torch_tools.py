@@ -16,8 +16,8 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+from ssvio_tpu_torch import graphs  # noqa: E402
 from ssvio_tpu_torch.frontend import resolve_device  # noqa: E402
-from ssvio_tpu_torch.ops import lk_cuda, lk_patch_cuda, lk_variants_cuda  # noqa: E402
 from ssvio_tpu_torch.system import System  # noqa: E402
 
 # what a snapshot shares with the live System instead of copying: the
@@ -44,9 +44,9 @@ def synchronize(device) -> None:
 
 def launch_counts() -> Dict[str, int]:
     """The kernel wrappers' launch counters (each counts the launches of
-    its CUDA kernel; the plain versions on CPU tensors count none)."""
-    return dict(lk_level=lk_cuda.LAUNCHES, lk_patch=lk_patch_cuda.LAUNCHES,
-                **lk_variants_cuda.LAUNCHES)
+    its CUDA kernel, a graph's replays included; the plain versions on CPU
+    tensors count none)."""
+    return graphs.launch_counts()
 
 
 def launches_since(before: Dict[str, int]) -> Dict[str, int]:

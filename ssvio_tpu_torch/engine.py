@@ -11,12 +11,20 @@ frames, with the status machine as `lax.cond` branches on the device:
 
 torch has neither `lax.scan` nor `lax.cond`. Here the same step runs, in the
 same order, as a Python loop over the chunk's frames that branches on the
-status on the host (the port's ops already read small scalars there: the
-inlier count, the LM stop flags). What the chunk keeps from the JAX engine
-is its contract: the SLAM state stays on the device in an `EngineCarry`
-between chunks, the per-frame outputs stay on the device, and the host
-reads back ONE packed vector per chunk (`pack_readback`). CUDA graphs of
-the per-frame step are later work (ROADMAP Queue 1 #10).
+status on the host. What the chunk keeps from the JAX engine is its
+contract: the SLAM state stays on the device in an `EngineCarry` between
+chunks, the per-frame outputs stay on the device, and the host reads back
+ONE packed vector per chunk (`pack_readback`).
+
+The tracking branch (`do_track`: pyramid, seeded LK, pose-only LM) is the
+JAX program's counterpart on the card: one CUDA graph (`graphs.TrackGraph`,
+built at the first tracked frame) replayed every tracked frame, with no
+host read inside. What stays on the host is the branch choice, as
+`lax.cond`'s predicate: one read of the inlier count a tracked frame. The
+keyframe branch (detection, stereo LK, triangulation, local BA) still runs
+eagerly and reads small scalars on the host (ROADMAP Queue 1 #10). An
+Engine built with `eager=True` runs the tracking branch eagerly too, as
+`jax.disable_jit` runs the JAX step op by op.
 
 With `loop_desc` the keyframe branch also emits the loop closer's
 descriptor ladder (`loopclosing.loop_describe`) of every keyframe it
@@ -25,12 +33,12 @@ inserts, in `FrameOut.desc` / `dval`, as the JAX engine does.
 
 from __future__ import annotations
 
-from typing import Callable, List, NamedTuple, Optional, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
 from ssvio_tpu_torch import frontend as fe
-from ssvio_tpu_torch import loopclosing
+from ssvio_tpu_torch import graphs, loopclosing
 from ssvio_tpu_torch import map as mapmod
 from ssvio_tpu_torch.ops import ba, se3
 from ssvio_tpu_torch.parallel import dist_ba
@@ -71,6 +79,7 @@ class _Frame(NamedTuple):
     img_r: Optional[torch.Tensor]  # level 0 of the right pyramid, if built
     status: int
     n_inliers: torch.Tensor
+    inliers: int              # n_inliers as the host read it (0 untracked)
     kf_slot: int              # -1: no keyframe
     kf_gid: int
     feat: fe.FeatState
@@ -90,13 +99,20 @@ class Engine:
     over the mesh's landmark axis, through `dist_ba.PrimaryBA` (`self.dist`;
     the other ranks run `dist_ba.serve`). The JAX engine gets the same
     sharding from sharding constraints on the map inside its compiled
-    chunk; tracking stays on one rank in both."""
+    chunk; tracking stays on one rank in both.
+
+    `eager`: run the tracking branch op by op instead of through the
+    tracking graph (`graphs.TrackGraph`, one per canvas shape, in
+    `self.graphs`); the tests and chip_smoke.py hold the two against each
+    other. `close()` releases the graphs."""
 
     def __init__(self, frontend: fe.Frontend, enable_backend: bool,
-                 mesh=None, loop_desc: bool = False):
+                 mesh=None, loop_desc: bool = False, eager: bool = False):
         self.fe = frontend
         self.s = frontend.s
         self.enable_backend = enable_backend
+        self.eager = eager
+        self.graphs: Dict[Tuple[int, ...], graphs.TrackGraph] = {}
         self.dist = None
         if mesh is not None:
             if mesh.device != frontend.device:
@@ -116,6 +132,39 @@ class Engine:
                            if loop_desc else 0)
 
     # ------------------------------------------------------------------
+    def _track(self, carry: EngineCarry, img_l: torch.Tensor
+               ) -> Tuple[fe.Pyr, fe.TrackOut]:
+        """The tracking branch on one left frame: the pyramid and
+        `_track_step` against the carry, through the canvas's tracking
+        graph (built here at its first frame) unless the engine is eager."""
+        args = (carry.pyr_last, carry.feat, carry.T_cw, carry.rel_motion,
+                carry.m.lm_pos, carry.m.lm_valid, carry.m.lm_gid)
+        if self.eager:
+            return self.fe.track_frame(img_l.to(torch.float32), *args)
+        key = tuple(img_l.shape)
+        graph = self.graphs.get(key)
+        if graph is None:
+            graph = self.graphs[key] = graphs.TrackGraph(self.fe, img_l,
+                                                         *args)
+        return graph(img_l, *args)
+
+    @property
+    def tracking_path(self) -> str:
+        """How the tracking branch runs: "eager", "graph" (a CUDA graph
+        replayed) or "static buffers" (the graph's function on its
+        buffers, uncaptured: the CPU)."""
+        if self.eager:
+            return "eager"
+        return "graph" if self.fe.device.type == "cuda" else "static buffers"
+
+    def close(self) -> None:
+        """Release the tracking graphs (their memory pools); the next
+        tracked frame builds a new one."""
+        for graph in self.graphs.values():
+            graph.close()
+        self.graphs.clear()
+
+    # ------------------------------------------------------------------
     def _step(self, carry: EngineCarry, img_l: torch.Tensor,
               img_r: Callable[[], torch.Tensor]
               ) -> Tuple[EngineCarry, _Frame]:
@@ -132,6 +181,12 @@ class Engine:
         run the keyframe path, so run_step pads and uploads the right eye
         only there.
 
+        A tracked frame replays the tracking graph (`_track`) and reads the
+        host once: `int(out.n_inliers)`, whose status picks the branch (the
+        JAX step's `lax.cond` on the device). Nothing else on its way
+        reads a device value unless the frame turns into a keyframe, whose
+        branch runs eagerly.
+
         Reference: FrontEnd::GrabSteroImage status dispatch
         (frontend.cpp:49-67), SteroInit (:430-446), Track (:79-128),
         InsertKeyFrame (:546-576) + Backend::OptimizeActiveMap
@@ -139,27 +194,29 @@ class Engine:
         f = self.fe
         s = self.s
         dev = f.device
-        # u8 frames (camera-native, 4x fewer bytes to upload) are promoted
-        # on the device; the right eye is undistorted only where it is used
-        img_l = f._undistort_left(img_l.to(torch.float32))
-        pyr_l = f._build_pyramid(img_l)
         status = carry.status
         is_init = status == fe.INITING
         is_track = status in (fe.TRACKING_GOOD, fe.TRACKING_BAD)
 
-        # ---- tracking (only for GOOD/BAD; INITING/LOST pass through)
+        # ---- tracking (only for GOOD/BAD; INITING/LOST pass through). u8
+        # frames (camera-native, 4x fewer bytes to upload) are promoted on
+        # the device; the right eye is undistorted only where it is used
+        n_inl = 0
         if is_track:
-            out = f._track_step(carry.pyr_last, pyr_l, carry.feat, carry.T_cw,
-                                carry.rel_motion, carry.m.lm_pos,
-                                carry.m.lm_valid, carry.m.lm_gid)
+            pyr_l, out = self._track(carry, img_l)
+            # the one host read of a tracked frame: the status picks the
+            # branch, as the JAX step's lax.cond does on the device
             n_inl = int(out.n_inliers)
             status_t = (fe.TRACKING_GOOD if n_inl > s.tracking_good
                         else fe.TRACKING_BAD if n_inl > s.tracking_bad
                         else fe.LOST)
         else:
+            pyr_l = f._build_pyramid(
+                f._undistort_left(img_l.to(torch.float32)))
             out = fe.TrackOut(carry.feat, carry.T_cw, carry.rel_motion,
                               torch.zeros((), dtype=torch.int32, device=dev))
             status_t = status
+        img_l = pyr_l.levels[0]           # the undistorted float32 frame
         need_kf = is_init or (is_track and status_t == fe.TRACKING_BAD)
 
         # ---- keyframe machinery (one path for init + steady)
@@ -216,7 +273,7 @@ class Engine:
         status_f = ((fe.TRACKING_GOOD if kf_ok else fe.INITING) if is_init
                     else status_t)
         c2 = EngineCarry(pyr_l, feat_f, T_f, rel_f, m_f, status_f)
-        return c2, _Frame(T_f, T_in, img_r0, status_f, out.n_inliers,
+        return c2, _Frame(T_f, T_in, img_r0, status_f, out.n_inliers, n_inl,
                           kf_slot, kf_gid, feat_f, ran_ba, ran_dist_ba, desc,
                           dval)
 

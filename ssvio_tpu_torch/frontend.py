@@ -6,7 +6,8 @@ frontend.hpp:25-31), projection-seeded LK against the last frame with a
 forward-backward gate, 4x10 pose-only LM, keyframe creation with masked
 re-detection, stereo LK both ways, triangulation and map insertion
 (reference src/ssvio/frontend.cpp). The JAX package jits these steps; here
-they run eagerly on the Frontend's device.
+they run eagerly on the Frontend's device, and the tracking half of a frame
+(`track_frame`) is captured into a CUDA graph on the card (`graphs.py`).
 """
 
 from __future__ import annotations
@@ -135,6 +136,18 @@ class Frontend:
         grads = [pyramid.sobel_gradients(l) for l in levels]
         return Pyr(levels=tuple(levels), gx=tuple(g[0] for g in grads),
                    gy=tuple(g[1] for g in grads))
+
+    # ------------------------------------------------------------------
+    def track_frame(self, img: torch.Tensor, pyr_last: Pyr, feat: FeatState,
+                    T_last, rel_motion, lm_pos, lm_valid, lm_gid
+                    ) -> Tuple[Pyr, TrackOut]:
+        """The tracking half of the engine's step on a float32 left frame:
+        undistortion, the pyramid, then `_track_step` against the last
+        frame's pyramid. Static shapes, no host read and no tensor made
+        from host data, so `graphs.TrackGraph` captures it as it is."""
+        pyr = self._build_pyramid(self._undistort_left(img))
+        return pyr, self._track_step(pyr_last, pyr, feat, T_last, rel_motion,
+                                     lm_pos, lm_valid, lm_gid)
 
     # ------------------------------------------------------------------
     def _track_step(self, pyr_last: Pyr, pyr_cur: Pyr, feat: FeatState,

@@ -9,9 +9,11 @@
   [M, W, C] observation table, Schur complement of the 3x3 landmark blocks,
   g2o's gain-ratio LM schedule and the inlier-ratio round loop.
 
-The JAX package's `while_loop`s with a scalar stop become Python loops that
-read the stop flag on the host (`.item()`), which gives the same answer; a
-few host syncs per frame are accepted here. Solves use
+The pose-only LM runs JAX's `while_loop` as a fixed trip of `iters` steps
+whose state freezes once its stop flag is set, with no host read, so the
+tracking step is captured into a CUDA graph (`graphs.py`). `local_ba`'s
+loops, on the keyframe branch, still read their stop flags on the host
+(`.item()`), which gives the same answer as JAX's. Solves use
 `torch.linalg.solve_ex`, which returns inf/nan on a singular system instead
 of raising, as `jnp.linalg.solve` does; the finiteness test then rejects
 the step.
@@ -64,10 +66,9 @@ def reproject_residual(T_cw: torch.Tensor, p_w: torch.Tensor, uv: torch.Tensor,
 
     Returns (r [..., 2], p_c [..., 3] LEFT-camera point, z_positive [...])."""
     p_cl = se3.transform(T_cw, p_w)
-    bx = torch.as_tensor(baseline_x, dtype=p_cl.dtype, device=p_cl.device)
     z = p_cl[..., 2]
     safe_z = torch.where(torch.abs(z) < 1e-6, torch.full_like(z, 1e-6), z)
-    u = fx * (p_cl[..., 0] - bx) / safe_z + cx
+    u = fx * (p_cl[..., 0] - baseline_x) / safe_z + cx
     v = fy * p_cl[..., 1] / safe_z + cy
     r = uv - torch.stack([u, v], dim=-1)
     return r, p_cl, z > 0.05
@@ -80,7 +81,7 @@ def reproject_jacobians(p_cl: torch.Tensor, R_cw: torch.Tensor,
     Returns J_pose [..., 2, 6] (left-multiplicative xi = [rho, phi]) and
     J_point [..., 2, 3] d r / d p_w."""
     x, y, z = p_cl[..., 0], p_cl[..., 1], p_cl[..., 2]
-    xs = x - torch.as_tensor(baseline_x, dtype=p_cl.dtype, device=p_cl.device)
+    xs = x - baseline_x
     safe_z = torch.where(torch.abs(z) < 1e-6, torch.full_like(z, 1e-6), z)
     iz = 1.0 / safe_z
     iz2 = iz * iz
@@ -127,11 +128,14 @@ def _pose_only_normal_eq(T, p_w, uv, w, fx, fy, cx, cy):
 def _lm_loop_6dof(T0, p_w, uv, weight, fx, fy, cx, cy, iters: int):
     """Adaptive-lambda LM on one 6-dof pose (g2o Levenberg semantics: gain
     ratio rho, lambda *= max(1/3, 1-(2 rho-1)^3) on success else *= nu),
-    normal equations carried between iterations, early exit on a stalled
-    step."""
+    normal equations carried between iterations. Exactly `iters` steps
+    with no host read: once a step stalls (`stop`), T, H, b, F, lam and nu
+    are frozen with `torch.where`, which is the state JAX's `while_loop`
+    leaves when it exits there (ssvio_tpu/ops/ba.py:146-173)."""
     H, b, F = _pose_only_normal_eq(T0, p_w, uv, weight, fx, fy, cx, cy)
     lam = 1e-5 * torch.max(torch.diagonal(H))
-    nu = torch.tensor(2.0, dtype=H.dtype, device=H.device)
+    nu = torch.full((), 2.0, dtype=H.dtype, device=H.device)
+    stop = torch.zeros((), dtype=torch.bool, device=H.device)
     T = T0
     eye6 = torch.eye(6, dtype=H.dtype, device=H.device)
     for _ in range(iters):
@@ -142,18 +146,20 @@ def _lm_loop_6dof(T0, p_w, uv, weight, fx, fy, cx, cy, iters: int):
         pred = 0.5 * torch.dot(dx, lam * dx + b)
         rho = (F - F_new) / torch.clamp(pred, min=1e-12)
         finite = torch.all(torch.isfinite(dx))
-        accept = (rho > 0) & finite
+        live = ~stop
+        accept = (rho > 0) & finite & live
         T = torch.where(accept, T_new, T)
         H = torch.where(accept, H_new, H)
         b = torch.where(accept, b_new, b)
         F = torch.where(accept, F_new, F)
-        lam = torch.where(
+        lam_next = torch.where(
             accept,
             lam * torch.clamp(1.0 - (2.0 * rho - 1.0) ** 3, min=1.0 / 3.0),
             lam * nu)
-        nu = torch.where(accept, torch.full_like(nu, 2.0), nu * 2.0)
-        if bool(((torch.max(torch.abs(dx)) < 1e-7) & finite).item()):
-            break
+        nu_next = torch.where(accept, torch.full_like(nu, 2.0), nu * 2.0)
+        lam = torch.where(live, lam_next, lam)
+        nu = torch.where(live, nu_next, nu)
+        stop = stop | ((torch.max(torch.abs(dx)) < 1e-7) & finite)
     return T
 
 

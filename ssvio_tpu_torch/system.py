@@ -25,6 +25,12 @@ BA of every steady keyframe, on both paths, is sharded over the mesh's
 landmark axis (engine.py; the other ranks run `dist_ba.serve` until
 `close()`), and `stats["n_dist_ba"]` counts those BAs. A relocalization's
 BA stays on this rank, as the JAX System's does.
+
+On a CUDA device the tracking branch of every tracked frame, on both paths
+and after a relocalization or a checkpoint load alike, replays the
+engine's tracking graph (`graphs.TrackGraph`); `eager=True` runs it op by
+op instead (the counterpart of `jax.disable_jit`). `close()` releases the
+graph's memory.
 """
 
 from __future__ import annotations
@@ -63,7 +69,7 @@ class System:
     def __init__(self, settings: Settings | str,
                  enable_backend: Optional[bool] = None,
                  enable_loop_closing: Optional[bool] = None, mesh=None,
-                 device=None):
+                 device=None, eager: bool = False):
         if isinstance(settings, str):
             settings = Settings.from_yaml(settings)
         self.s = settings
@@ -87,7 +93,8 @@ class System:
         # the per-frame step, shared by run_step and the chunk API; with
         # loop closing its keyframe branch emits the loop descriptors
         self._engine = eng.Engine(self.frontend, self.enable_backend,
-                                  mesh=mesh, loop_desc=enable_loop)
+                                  mesh=mesh, loop_desc=enable_loop,
+                                  eager=eager)
         self.loopclosing: Optional[LoopClosing] = None
         self.reset()
         if enable_loop:
@@ -219,7 +226,7 @@ class System:
         self._install(carry)
         self.last_stereo = (carry.pyr_last.levels[0], fr.img_r)
         if tracked:
-            n_inl = int(fr.n_inliers)
+            n_inl = fr.inliers
             self._health_window = (self._health_window + [n_inl])[-30:]
             self.track_health = float(np.median(self._health_window))
             self._add_health(float(n_inl))
@@ -504,9 +511,10 @@ class System:
         self._poll_loopclosing()
 
     def close(self):
-        """With a mesh: stop the ranks that serve its local BA (they return
-        from dist_ba.serve); the System's BA cannot run after it. Without
-        one: nothing."""
+        """Release the engine's tracking graphs, and with a mesh stop the
+        ranks that serve its local BA (they return from dist_ba.serve); the
+        System's BA cannot run after it."""
+        self._engine.close()
         if self._engine.dist is not None:
             self._engine.dist.close()
 

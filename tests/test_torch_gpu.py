@@ -30,6 +30,7 @@ import pytest
 import torch
 
 from ssvio_tpu_torch import frontend as fe
+from ssvio_tpu_torch import graphs
 from ssvio_tpu_torch.config import Settings
 from ssvio_tpu_torch.dataio import synthetic, synthetic_torch
 from ssvio_tpu_torch.ops import (_nvcc, bow, lk, lk_cuda, lk_patch_cuda, orb,
@@ -279,11 +280,9 @@ def test_patch_wrapper_rejects_what_the_kernel_does_not_take():
     assert lk_patch_cuda.LAUNCHES == before
 
 
-def test_chunk_path_on_gpu_matches_run_step():
-    """The chunk API on the card (pinned host buffers, the upload stream,
-    the prefetcher, pipelined dispatch/collect) gives what run_step gives,
-    on 24 frames of tests/test_engine_chunked.py's 620x188 setup."""
-    dev = _device()
+def _small_sequence(dev):
+    """tests/test_engine_chunked.py's 620x188 setup, 24 frames rendered on
+    the card, on the host: (settings, left, right) uint8 numpy."""
     fx = 360.0
     s = Settings()
     cam = dataclasses.replace(s.cam_left, fx=fx, fy=fx, cx=310.0, cy=94.0)
@@ -296,12 +295,26 @@ def test_chunk_path_on_gpu_matches_run_step():
     L, R = synthetic_torch.render_stereo_sequence_device(
         synthetic.SyntheticWorld(seed=3), poses, fx, fx, cam.cx, cam.cy,
         s.baseline, s.image_width, s.image_height, device=dev)
-    L, R = L.cpu().numpy(), R.cpu().numpy()
+    return s, L.cpu().numpy(), R.cpu().numpy()
+
+
+def _run_steps(sys_, L, R):
+    """Every frame through run_step: the statuses after each."""
+    statuses = []
+    for i in range(len(L)):
+        sys_.run_step(L[i], R[i], 0.1 * i)
+        statuses.append(sys_.status)
+    return statuses
+
+
+def test_chunk_path_on_gpu_matches_run_step():
+    """The chunk API on the card (pinned host buffers, the upload stream,
+    the prefetcher, pipelined dispatch/collect) gives what run_step gives,
+    on 24 frames of tests/test_engine_chunked.py's 620x188 setup."""
+    dev = _device()
+    s, L, R = _small_sequence(dev)
     a = System(s, enable_backend=True, device=dev)
-    st_a = []
-    for i in range(24):
-        a.run_step(L[i], R[i], 0.1 * i)
-        st_a.append(a.status)
+    st_a = _run_steps(a, L, R)
     b = System(s, enable_backend=True, device=dev)
     pf = b.prefetcher(depth=2)
     chunks = [slice(k, k + 6) for k in range(0, 24, 6)]
@@ -325,6 +338,87 @@ def test_chunk_path_on_gpu_matches_run_step():
     _, ta = a.frame_trajectory()
     _, tb = b.frame_trajectory()
     np.testing.assert_allclose(tb[:, :, 3], ta[:, :, 3], atol=1e-3)
+
+
+GRAPH_VS_EAGER_M = 1e-5   # the same kernels in the same order on one stream
+
+
+def test_tracking_graph_capture_on_gpu():
+    """A TrackGraph captures the tracking branch of a tracking System: its
+    replay equals the direct call bit for bit, holds one kernel #1 launch
+    a level of the forward and the backward track, and counts them on
+    every replay (its warm-up's are counted where they ran)."""
+    dev = _device()
+    s, L, R = _small_sequence(dev)
+    sys_ = System(s, enable_backend=True, device=dev, eager=True)
+    i = 0
+    while sys_.status not in (fe.TRACKING_GOOD, fe.TRACKING_BAD):
+        sys_.run_step(L[i], R[i], 0.1 * i)
+        i += 1
+    c = sys_._carry()
+    img = sys_._pad(L[i])
+    args = (c.pyr_last, c.feat, c.T_cw, c.rel_motion, c.m.lm_pos,
+            c.m.lm_valid, c.m.lm_gid)
+    ref = sys_.frontend.track_frame(img, *args)
+    n0 = lk_cuda.LAUNCHES
+    graph = graphs.TrackGraph(sys_.frontend, img, *args)
+    assert graph._graph is not None
+    want = dict(dict.fromkeys(graph.launches, 0), lk_level=2 * s.lk_levels)
+    assert graph.launches == want and graph.warmup_launches == want
+    assert lk_cuda.LAUNCHES - n0 == 2 * s.lk_levels        # the warm-up's
+    for _ in range(2):
+        got = graph(img, *args)
+    torch.cuda.synchronize()
+    assert lk_cuda.LAUNCHES - n0 == 3 * 2 * s.lk_levels
+    leaves = torch.utils._pytree.tree_leaves
+    for a, b in zip(leaves(got), leaves(ref)):
+        assert torch.equal(a, b)
+    graph.close()
+
+
+def test_tracking_graph_replays_like_eager_on_gpu(monkeypatch):
+    """24 frames through run_step: the graph path (every replay under
+    torch.cuda.set_sync_debug_mode("error"), so a synchronising call on
+    its way raises) against the eager path on the card: equal statuses and
+    keyframes, positions within GRAPH_VS_EAGER_M, one graph replayed on
+    every tracked frame, kernel #1 launched as the statuses imply plus the
+    warm-up's launches."""
+    dev = _device()
+    s, L, R = _small_sequence(dev)
+    call = graphs.TrackGraph.__call__
+
+    def replay_sync_free(self, *a):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return call(self, *a)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    a = System(s, enable_backend=True, device=dev, eager=True)
+    st_a = _run_steps(a, L, R)
+    monkeypatch.setattr(graphs.TrackGraph, "__call__", replay_sync_free)
+    b = System(s, enable_backend=True, device=dev)
+    n0 = lk_cuda.LAUNCHES
+    st_b = _run_steps(b, L, R)
+    assert st_b == st_a and fe.LOST not in st_a
+    assert b.stats == a.stats and b.stats["n_keyframes"] >= 2
+    _, ta = a.frame_trajectory()
+    _, tb = b.frame_trajectory()
+    assert float(np.abs(tb[:, :, 3] - ta[:, :, 3]).max()) <= GRAPH_VS_EAGER_M
+    assert not a._engine.graphs
+    (graph,) = b._engine.graphs.values()
+    before = [fe.INITING] + st_b[:-1]
+    n_tracked = sum(x in (fe.TRACKING_GOOD, fe.TRACKING_BAD) for x in before)
+    n_stereo = sum(x == fe.INITING for x in before) + sum(
+        x in (fe.TRACKING_GOOD, fe.TRACKING_BAD) and y == fe.TRACKING_BAD
+        for x, y in zip(before, st_b))
+    assert graph.calls == n_tracked > 10
+    levels = s.lk_levels
+    assert lk_cuda.LAUNCHES - n0 == (2 * levels * n_tracked
+                                     + 2 * (levels + 1) * n_stereo
+                                     + graph.warmup_launches["lk_level"])
+    b.close()
+    assert not b._engine.graphs
 
 
 # the staged level kernels: (counter, wrapper, plain version, keywords);

@@ -179,8 +179,9 @@ def test_lm_loop_6dof_batched_matches_vmap():
 
 def test_pnp_batched_parts_have_no_host_read(monkeypatch):
     """The batched DLT and the batched 5-step polish read nothing on the
-    host (counted through Tensor.__bool__ / .item() and their kin); only
-    pnp_ransac's final ba.pose_only_optimize does."""
+    host (counted through Tensor.__bool__ / .item() and their kin), and
+    neither does pnp_ransac as a whole: its final ba.pose_only_optimize
+    runs the LM as a fixed trip with no host read."""
     rng = np.random.default_rng(6)
     p_w, uv, valid, _ = make_scene(rng)
     xn = np.stack([(uv[:, 0] - CX) / FX, (uv[:, 1] - CY) / FY], -1)
@@ -199,7 +200,7 @@ def test_pnp_batched_parts_have_no_host_read(monkeypatch):
     assert reads == []
     pnp_t.pnp_ransac(_t(p_w), _t(uv), _t(valid), FX, FY, CX, CY,
                      sample_idx=_t(idx))
-    assert reads                       # the 4x10 LM's stop flags
+    assert reads == []
 
 
 # ----------------------------------------------------------------------

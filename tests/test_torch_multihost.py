@@ -61,9 +61,12 @@ def _free_port() -> int:
 
 def _rank_envs(world: int) -> list:
     """Each rank's environment: the SSVIO_* variables for a tcp://
-    coordinator on a free port, and no torchrun variables."""
+    coordinator on a free port, no torchrun variables, and one torch
+    thread (OMP_NUM_THREADS; beside the suite's xdist workers a rank with
+    a thread per core ran ten times slower)."""
     coord = f"127.0.0.1:{_free_port()}"
     base = {k: v for k, v in os.environ.items() if k not in ENV_KEYS}
+    base["OMP_NUM_THREADS"] = "1"
     return [dict(base, SSVIO_COORDINATOR=coord,
                  SSVIO_NUM_PROCESSES=str(world), SSVIO_PROCESS_ID=str(r))
             for r in range(world)]
@@ -221,7 +224,7 @@ def test_driver_primary_and_server_over_ssvio_variables(seq, single,
     outs = []
     try:
         for p in procs:
-            outs.append(p.communicate(timeout=300)[0])
+            outs.append(p.communicate(timeout=120)[0])
     finally:
         for p in procs:
             if p.poll() is None:
@@ -248,7 +251,7 @@ def test_profile_scaling_script_on_the_cpu():
     out = subprocess.run(
         [sys.executable, os.path.join(SCRIPTS, "torch_profile_scaling.py"),
          "--device", "cpu", "--json", "256"], cwd=REPO, capture_output=True,
-        text=True, timeout=300)
+        text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-4000:]
     line = [ln for ln in out.stdout.splitlines() if ln.startswith("SCALING ")]
     rep = json.loads(line[0][len("SCALING "):])

@@ -267,7 +267,7 @@ def test_build_is_safe_when_processes_build_at_once(tmp_path):
                               env=env, stdout=subprocess.PIPE,
                               stderr=subprocess.PIPE, text=True)
              for _ in range(2)]
-    outs = [pr.communicate(timeout=300) for pr in procs]
+    outs = [pr.communicate(timeout=120) for pr in procs]
     for pr, (out, err) in zip(procs, outs):
         assert pr.returncode == 0, err[-2000:]
         assert int(out.strip()) == int(img.astype(np.int64).sum())

@@ -28,6 +28,7 @@ for name in BLOCKED:
 import ssvio_tpu_torch
 mods = [m.name for m in pkgutil.walk_packages(ssvio_tpu_torch.__path__,
                                               "ssvio_tpu_torch.")]
+assert "ssvio_tpu_torch.graphs" in mods, mods     # the tracking graph
 for m in mods:
     importlib.import_module(m)
 scripts = sorted(glob.glob("scripts/torch_*.py"))
@@ -46,7 +47,7 @@ print("MODULES", len(mods), "LOADED", loaded)
 def test_port_and_chip_smoke_import_without_jax_or_yaml():
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", _CHILD], cwd=REPO, env=env,
-                         capture_output=True, text=True, timeout=300)
+                         capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-3000:]
     line = [ln for ln in out.stdout.splitlines() if ln.startswith("MODULES")][0]
     n_mods = int(line.split()[1])
@@ -79,7 +80,7 @@ print("LOOP SYSTEM", lc.cap, lc.desc_db.shape[1])
 def test_loop_closing_system_builds_without_jax():
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", _CHILD_LOOP], cwd=REPO,
-                         env=env, capture_output=True, text=True, timeout=300)
+                         env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-3000:]
     assert "LOOP SYSTEM 4 4096" in out.stdout, out.stdout
 
@@ -92,6 +93,6 @@ def test_chip_smoke_refuses_to_run_without_a_gpu():
         pytest.skip("a GPU is present here")
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=REPO, env=env,
-                         capture_output=True, text=True, timeout=300)
+                         capture_output=True, text=True, timeout=120)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout

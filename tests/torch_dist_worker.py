@@ -31,10 +31,10 @@ from ssvio_tpu_torch.parallel import dist_ba, multihost  # noqa: E402
 
 # a collective that waits longer raises: ranks out of step fail the test
 # instead of hanging it
-TIMEOUT = datetime.timedelta(seconds=120)
+TIMEOUT = datetime.timedelta(seconds=60)
 
 
-def launch(job: dict, world: int, workdir, timeout: float = 240.0,
+def launch(job: dict, world: int, workdir, timeout: float = 90.0,
            envs=None) -> list:
     """Run `job` on `world` worker processes meeting at a file store in
     `workdir`; returns each rank's results. `envs[r]`: rank r's
