@@ -43,12 +43,18 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 Phases 4-11 run the System's default path: the tracking branch of every
 tracked frame replays the engine's tracking graph (graphs.TrackGraph,
 one CUDA graph of the pyramid, the LK kernels and the pose-only LM,
-captured at the System's first tracked frame; the keyframe branch runs
-eagerly). Their launch checks count what the statuses imply plus the
-launches of each graph's warm-up (graphs.WARMUP_LAUNCHES: one eager run
-before the capture), and the graphs' replays must equal the tracked
-frames (graphs.REPLAYS; _check_replays). Each phase closes its Systems
-(System.close releases a graph's memory pool).
+captured at the System's first tracked frame), and the keyframe branch
+of every steady keyframe its keyframe graph (graphs.KeyframeGraph, one
+CUDA graph of the right pyramid, detection, stereo LK, triangulation, the
+map inserts, the loop descriptors and the 5 x 10 local BA, captured at
+the first steady keyframe; an init frame's branch runs eagerly, and with
+a mesh every keyframe's). Their launch checks count what the statuses
+imply plus the launches of each graph's warm-up
+(graphs.WARMUP_LAUNCHES: one eager run before the capture), and the
+tracking graphs' replays must equal the tracked frames (graphs.REPLAYS),
+the keyframe graphs' the steady keyframes (graphs.KF_REPLAYS;
+_check_replays). Each phase closes its Systems (System.close releases
+the graphs' memory pools).
 
 4. the run_step path: System(device="cuda") with the bench configuration
    (512 features, 8192 landmarks, window 16, 8 FAST octaves, LK 11x11 / 3
@@ -57,6 +63,10 @@ frames (graphs.REPLAYS; _check_replays). Each phase closes its Systems
    on the card, through run_step. The run must never go LOST, make >= 2
    keyframes and >= 1 local BA, launch kernel #1 exactly as often as the
    statuses imply (and no other kernel), and keep ATE under 0.5 m.
+   Prints the median and mean ms a frame, the steady keyframe frames'
+   median and the first one's (it builds the keyframe graph), and the
+   rounds and LM steps each local BA's loops take (Engine.ba_trips; the
+   fixed trip runs 5 x 10).
 5. the chunk path: the RobotCar configuration runs 96 frames of a straight
    drive down a street (SCENES; rendered on the card, handed over as host
    uint8 as a camera's are) in chunks of 32
@@ -66,17 +76,20 @@ frames (graphs.REPLAYS; _check_replays). Each phase closes its Systems
    give the same statuses and keyframes and trajectories within 1e-3 m.
 5b. graph against eager: phase 4's frames through run_step and phase 5's
    through the prefetcher and pipelined chunks, each in turns on a new
-   System eager (System(eager=True): the tracking branch op by op),
-   graph, graph, eager, every graph call (copy-in, replay, copy-out) under
-   torch.cuda.set_sync_debug_mode("error"), so a call on its way that
-   waits for the device raises. Phase 4's and 5's checks on each run
-   (launches as the statuses imply, replays equal to the tracked frames
-   on the graph path and none on the eager one); statuses and keyframe
-   counts equal across the four runs, positions within GRAPH_VS_EAGER_M
-   between the paths (the largest differences printed). Then the
-   pose-only LM on the last tracked frame of the first graph run, eager
-   and replayed from a graph of it (4 x 10 iterations, a fixed trip):
-   CUDA-event ms of each, beside ms/frame of every run.
+   System eager (System(eager=True): both branches op by op), graph,
+   graph, eager, every call of either graph (copy-in, replay, copy-out)
+   under torch.cuda.set_sync_debug_mode("error"), so a call on its way
+   that waits for the device (an item(), a nonzero()) raises. Phase 4's
+   and 5's checks on each run (launches as the statuses imply, tracking
+   replays equal to the tracked frames and keyframe replays to the steady
+   keyframes on the graph path, none on the eager one); statuses and
+   keyframe counts equal across the four runs, positions within
+   GRAPH_VS_EAGER_M between the paths (the largest differences printed).
+   Then on the last tracked frame of the first graph run, eager and
+   replayed from a graph of it, with CUDA-event ms of each: the pose-only
+   LM (4 x 10 iterations, a fixed trip) and the local BA of the window
+   (5 x 10, a fixed trip); beside ms/frame of every run and its steady
+   keyframe frames' median ms.
 6. the flavours: phase 4's frames through run_step once for each of sw,
    ymm, pkmm, mm and mm_f32 (bench configuration with lk_kernel set). Same
    checks as phase 4, with the flavour's kernel launched as often as the
@@ -185,7 +198,10 @@ frames (graphs.REPLAYS; _check_replays). Each phase closes its Systems
    statuses equal to run_step's, positions within its POS_TOL_M); each
    stage alone (torch_profile_stages: every LK stage launches kernel #1
    once a level: lk.track 3, _track_step 2 x 3, _keyframe_step 2 x 4, the
-   tracking graph's replay 2 x 3; the LM's graph none); the engine step
+   tracking graph's replay 2 x 3, the keyframe branch eager and replayed
+   2 x 4; the LM's and the local BA's graphs none), one steady keyframe
+   frame alone traced (its busy share in (0, 1], kernel #1's events equal
+   to its counter); the engine step
    per frame over PROFILE_FRAMES frames and in chunks of half as many
    (tracking and keyframe frames both seen); transfers (pinned and
    pageable GB/s above 0, side-stream copies overlapping the port's step
@@ -219,6 +235,7 @@ import torch.distributed as dist
 
 from ssvio_tpu_torch import frontend as fe
 from ssvio_tpu_torch import graphs, interop, loopclosing
+from ssvio_tpu_torch import map as mapmod
 from ssvio_tpu_torch.config import (Settings, bench_loop_settings,
                                     bench_settings,
                                     robotcar_xb3_wide_settings)
@@ -236,6 +253,7 @@ from ssvio_tpu_torch.utils import checkpoint, profiling
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(REPO, "scripts"))
+import torch_ba_trips as ba_trips  # noqa: E402
 import torch_probe_gauge_invariance as gauge_probe  # noqa: E402
 import torch_profile_ablation as prof_ablation  # noqa: E402
 import torch_profile_engine as prof_engine  # noqa: E402
@@ -1014,23 +1032,30 @@ def _zero_launches():
 
 def _expect(warmups=None, **counts):
     """Every kernel's launch count: `counts`, and 0 for the others, plus
-    the launches of the warm-ups of the tracking graphs built since the
-    counters were zeroed (real launches, once a graph, before its
-    capture): `warmups`, by default graphs.WARMUP_LAUNCHES."""
+    the launches of the warm-ups of the tracking and keyframe graphs built
+    since the counters were zeroed (real launches, once a graph, before
+    its capture): `warmups`, by default graphs.WARMUP_LAUNCHES."""
     warm = graphs.WARMUP_LAUNCHES if warmups is None else warmups
     want = dict(dict.fromkeys(_launches(), 0), **counts)
     return {k: v + warm.get(k, 0) for k, v in want.items()}
 
 
-def _check_replays(tag, imp, eager=False, replays=None):
+def _check_replays(tag, imp, eager=False, replays=None, kf_replays=None,
+                   kf_graph=True):
     """Every tracked frame since the counters were zeroed replayed a
-    tracking graph (none on the eager path): `replays`, by default
-    graphs.REPLAYS."""
+    tracking graph, and every steady keyframe a keyframe graph (none on
+    the eager path, and no keyframe graph where `kf_graph` is False: a
+    System with a mesh): `replays` and `kf_replays`, by default
+    graphs.REPLAYS and graphs.KF_REPLAYS."""
     got = graphs.REPLAYS if replays is None else replays
+    kf = graphs.KF_REPLAYS if kf_replays is None else kf_replays
     want = 0 if eager else imp["n_tracked"]
-    if got != want:
+    want_kf = imp["n_steady_keyframes"] if kf_graph and not eager else 0
+    if got != want or kf != want_kf:
         raise AssertionError(f"{tag}: {got} tracking-graph replays for "
-                             f"{imp['n_tracked']} tracked frames "
+                             f"{imp['n_tracked']} tracked frames, {kf} "
+                             f"keyframe-graph replays for "
+                             f"{imp['n_steady_keyframes']} steady keyframes "
                              f"({'eager' if eager else 'graph'} path)")
 
 
@@ -1060,6 +1085,15 @@ def _run_steps(sys_, L, R, ts):
     return before, after, ms
 
 
+def _steady_kf_ms(ms, before, after):
+    """The ms of the steady keyframe frames (tracked, turned BAD): their
+    median, and the first one's (on the graph path it builds the keyframe
+    graph: a warm-up run, the capture and a replay)."""
+    kf = [m for m, b, a in zip(ms, before, after)
+          if b in (fe.TRACKING_GOOD, fe.TRACKING_BAD) and a == fe.TRACKING_BAD]
+    return (float(np.median(kf)), kf[0]) if kf else (None, None)
+
+
 def phase_run_step(s: Settings, dev):
     print("run_step path [kitti_bench]:")
     sys_ = System(s, enable_backend=True, enable_loop_closing=False,
@@ -1073,14 +1107,19 @@ def phase_run_step(s: Settings, dev):
     res = _check_run("run_step", sys_, after, est, poses, launches,
                      _expect(**imp["level0_on_level"]))
     _check_replays("run_step", imp)
+    trips = ba_trips.trips(sys_._engine)
     sys_.close()
     res.update(launches=launches, median_ms_per_frame=float(np.median(ms)),
+               mean_ms_per_frame=float(np.mean(ms)),
                median_ms_tracked_good=float(np.median(
                    [m for m, b, a in zip(ms, before, after)
                     if b in (fe.TRACKING_GOOD, fe.TRACKING_BAD)
                     and a == fe.TRACKING_GOOD])),
+               steady_keyframe_ms=dict(zip(("median", "first"),
+                                           _steady_kf_ms(ms, before, after))),
                total_s=sum(ms) / 1e3, n_init_attempts=imp["n_init_attempts"],
-               n_tracked=imp["n_tracked"])
+               n_tracked=imp["n_tracked"],
+               n_steady_keyframes=imp["n_steady_keyframes"], ba_trips=trips)
     print("  run_step: " + json.dumps(res))
     return res, dict(poses=poses, L=L, R=R, after=after, est=est,
                      n_keyframes=res["n_keyframes"], n_ba=res["n_ba"])
@@ -1220,6 +1259,34 @@ def _lm_ms(sys_) -> dict:
     return res
 
 
+def _ba_ms(sys_) -> dict:
+    """The local BA (5 x 10, a fixed trip) on the System's window, eager
+    and replayed from a CUDA graph of it (graphs.StaticGraph), CUDA-event
+    ms a call; the two must agree (poses and landmarks within
+    GRAPH_VS_EAGER_M, equal edges)."""
+    f = sys_.frontend
+    prob = mapmod.ba_problem_from_map(sys_.map)
+
+    def bundle(p):
+        return ba.local_ba(p, f._fx, f._fy, f._cx, f._cy, f._baseline)
+
+    graph = graphs.StaticGraph(bundle, prob)
+    want, got = bundle(prob), graph(prob)
+    d = max(float((want.kf_T_cw - got.kf_T_cw).abs().max()),
+            float((want.lm_pos - got.lm_pos).abs().max()))
+    if not d <= GRAPH_VS_EAGER_M or not torch.equal(want.obs_valid,
+                                                    got.obs_valid):
+        raise AssertionError(f"the local BA's graph differs from its eager "
+                             f"call by {d}")
+    res = dict(eager_ms=_time_ms(lambda: bundle(prob), reps=5, warmup=1),
+               graph_ms=_time_ms(lambda: graph(prob), reps=10, warmup=2),
+               rounds=int(want.rounds), steps=int(want.iterations),
+               n_keyframes=int(prob.kf_valid.sum()),
+               n_landmarks=int(prob.lm_valid.sum()), graph_vs_eager=d)
+    graph.close()
+    return res
+
+
 def _turns(tag, run) -> list:
     """`run(eager)` in turns eager, graph, graph, eager (each a new
     System), every graph replay sync-free (_sync_free_replays). Statuses
@@ -1261,7 +1328,7 @@ def phase_graph_vs_eager(kitti: Settings, robotcar: Settings, dev,
           "eager")
     t_phase = time.perf_counter()
     out = dict(launches=dict.fromkeys(_launches(), 0))
-    lm = {}
+    lm, ba_graph = {}, {}
 
     def counted(tag, sys_, before, after, est, poses, eager, imp_key):
         launches = _launches()
@@ -1285,8 +1352,11 @@ def phase_graph_vs_eager(kitti: Settings, robotcar: Settings, dev,
                 "level0_on_level")
         if not eager and not lm:
             lm.update(_lm_ms(sys_))
+            ba_graph.update(_ba_ms(sys_))
         sys_.close()
         return dict(after=after, est=est, ms_per_frame=float(np.median(ms)),
+                    mean_ms_per_frame=float(np.mean(ms)),
+                    steady_kf_ms=_steady_kf_ms(ms, before, after)[0],
                     n_keyframes=sys_.stats["n_keyframes"])
 
     def robotcar_run(eager):
@@ -1309,11 +1379,19 @@ def phase_graph_vs_eager(kitti: Settings, robotcar: Settings, dev,
     out["run_chunk"], out["run_chunk_diff_m"] = _turns(
         "run_chunk [robotcar_xb3_wide]", robotcar_run)
     out["pose_only_lm"] = lm
+    out["local_ba"] = ba_graph
     out["wall_s"] = time.perf_counter() - t_phase
+    kf_ms = [r["steady_kf_ms"] for r in out["run_step"]]
+    print(f"  [{card}] steady keyframe frames, median ms, eager / graph / "
+          f"graph / eager: {kf_ms}")
     print(f"  [{card}] pose-only LM on the last tracked frame "
           f"({lm['n_valid']} features, {lm['iterations']} iterations): "
-          f"eager {lm['eager_ms']:.3f} ms, graph {lm['graph_ms']:.3f} ms "
-          f"(CUDA events); phase 5b {out['wall_s']:.1f} s")
+          f"eager {lm['eager_ms']:.3f} ms, graph {lm['graph_ms']:.3f} ms; "
+          f"local BA of its window ({ba_graph['n_keyframes']} keyframes, "
+          f"{ba_graph['n_landmarks']} landmarks, {ba_graph['rounds']} "
+          f"rounds / {ba_graph['steps']} LM steps of the 50 run): eager "
+          f"{ba_graph['eager_ms']:.3f} ms, graph {ba_graph['graph_ms']:.3f} "
+          f"ms (CUDA events); phase 5b {out['wall_s']:.1f} s")
     return out
 
 
@@ -1949,6 +2027,7 @@ def _driver_pass(tag, seq, out, dev, *flags):
     _zero_launches()
     res = driver.run(sys_, args)
     res.update(launches=_launches(), replays=graphs.REPLAYS,
+               kf_replays=graphs.KF_REPLAYS,
                warmups=dict(graphs.WARMUP_LAUNCHES), sys=sys_, **log)
     sys_.close()
     return res
@@ -1966,7 +2045,8 @@ def _check_driver_pass(tag, res):
         raise AssertionError(f"driver [{tag}]: kernel launches "
                              f"{res['launches']} != {imp['level0_on_level']} "
                              "implied by the statuses")
-    _check_replays(f"driver [{tag}]", imp, replays=res["replays"])
+    _check_replays(f"driver [{tag}]", imp, replays=res["replays"],
+                   kf_replays=res["kf_replays"])
     if res["ate"] is None or not res["ate"]["rmse"] < ATE_MAX_M:
         raise AssertionError(f"driver [{tag}]: keyframe ATE {res['ate']} "
                              f"(>= {ATE_MAX_M} m, or no keyframe)")
@@ -2233,7 +2313,7 @@ def _mesh_system(s, mesh, frames, dev) -> dict:
     _, est = sys_.frame_trajectory()
     res = _check_run("dist System", sys_, after, est, poses, launches,
                      _expect(lk_level=imp["level0_on_level"]["lk_level"]))
-    _check_replays("dist System", imp)
+    _check_replays("dist System", imp, kf_graph=False)
     d = float(np.abs(est[:, :, 3] - frames["est"][:, :, 3]).max())
     res.update(launches=launches, n_dist_ba=sys_.stats["n_dist_ba"],
                served=int(served.item()), ms_per_frame=1e3 * wall / len(L),
@@ -2327,13 +2407,22 @@ def _check_trace(tr) -> None:
     if not top_ms <= tr["window_ms"]:
         raise AssertionError(f"trace: the top ops' {top_ms} ms exceed the "
                              f"window's {tr['window_ms']} ms")
+    kf = tr["keyframe_frame"]
+    kf1 = sum(v for k, v in kf["launches"].items() if prof_trace.KERNEL1 in k)
+    if not 0.0 < kf["busy_share"] <= 1.0 or \
+            kf1 != kf["counter_launches"]["lk_level"] or kf1 <= 0:
+        raise AssertionError(f"trace of a keyframe frame: busy share "
+                             f"{kf['busy_share']}, kernel #1 {kf1} events, "
+                             f"its counter {kf['counter_launches']}")
 
 
 def _check_stages(st) -> None:
     want = {"build_pyramid": {}, "lk.track fwd": {"lk_level": 3},
             "track_step": {"lk_level": 6}, "keyframe_step": {"lk_level": 8},
             "track_frame graph": {"lk_level": 6},
-            "pose_only_optimize graph": {}}
+            "pose_only_optimize graph": {},
+            "keyframe_branch": {"lk_level": 8},
+            "keyframe_frame graph": {"lk_level": 8}, "local_ba graph": {}}
     got = {k: st["stages"][k]["launches_per_call"] for k in want}
     if got != want:
         raise AssertionError(f"stages: launches a call {got} != {want}")
@@ -2386,13 +2475,17 @@ def phase_profiling(dev, card: str) -> dict:
                                  f"(tolerance {gp['pose_tol_m']} m): "
                                  f"{gp[tag]}")
     out = dict(launches=_launches(), wall_s=time.perf_counter() - t_phase,
-               tool_s=secs, trace=dict(tr, top_ops=tr["top_ops"][:10]), ablation=ab,
+               tool_s=secs, trace=dict(tr, top_ops=tr["top_ops"][:10]),
+               ablation=ab,
                stages=st, engine=en, transfer=trf, ingest=ing, gauge=gp)
     print(f"  [{card}]")
+    kf = tr["keyframe_frame"]
     print(f"  trace: busy share {tr['busy_share']:.4f} of the untraced "
           f"chunk ({tr['traced_busy_share']:.4f} of the traced, stretched "
           f"{tr['stretch']:.3f}x), {tr['kernels_per_frame']:.0f} kernels a "
-          f"frame, kernel #1 {tr['trace_kernel1']} events = its counter")
+          f"frame, kernel #1 {tr['trace_kernel1']} events = its counter; "
+          f"a steady keyframe frame alone {kf['untraced_ms']:.2f} ms, busy "
+          f"share {kf['busy_share']:.4f}, {kf['n_kernels']} kernels")
     print("  ablation ms/frame: " + ", ".join(
         f"{k} {v['ms_per_frame']:.2f}" for k, v in ab["variants"].items())
         + f"; full vs run_step {chk['max_position_diff_m']:.3g} m")

@@ -211,7 +211,7 @@ def engine_run(M: int, dev, mesh=None, reps: int = ENGINE_REPS):
                 torch.cuda.synchronize(dev)
             if i:
                 times.append(1e3 * (time.perf_counter() - t0))
-    if fr.kf_slot < 0 or not fr.ran_ba:
+    if not fr.keyframe or not fr.ran_ba:
         raise RuntimeError("engine mode: the step took no keyframe + BA")
     if engine.dist is not None:
         engine.dist.close()

@@ -8,11 +8,16 @@ observations) at its settings (Settings() with 512 features and 8192
 landmarks: 1241x376 padded to 1248x384), it times `_build_pyramid`,
 `_track_step`, `lk.track` forward, `ba.pose_only_optimize`,
 `_keyframe_step`, `fast.detect_grid` and `local_ba` (on the window the
-keyframe step leaves), each called op by op, then the tracking branch as
-the engine runs it by default, `Frontend.track_frame` (undistortion,
-pyramid, `_track_step`) replayed from its CUDA graph
-(graphs.TrackGraph), and `pose_only_optimize` replayed from one
-(graphs.StaticGraph; on the CPU both run uncaptured): the median of `--reps` calls (local BA 5), each
+keyframe step leaves), each called op by op, then the two branches as the
+engine runs them by default: `Frontend.track_frame` (undistortion,
+pyramid, `_track_step`) replayed from its CUDA graph (graphs.TrackGraph)
+and the keyframe branch of a steady keyframe frame
+(`Engine.keyframe_branch`: the right pyramid, `_keyframe_core`, the
+5 x 10 local BA) eagerly and replayed from its graph
+(graphs.KeyframeGraph), and `pose_only_optimize` and `local_ba` replayed
+from graphs of their own (graphs.StaticGraph; on the CPU every graph runs
+uncaptured): the median of `--reps` calls (local BA and the keyframe
+branch 5), each
 timed by CUDA events on a CUDA device (profiling.timeit), and the kernel
 launches one call makes. It runs on the current CUDA device unless
 --device names another (--device cpu for the CPU); without a CUDA device
@@ -35,6 +40,7 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
+from ssvio_tpu_torch import engine as eng  # noqa: E402
 from ssvio_tpu_torch import frontend as fe  # noqa: E402
 from ssvio_tpu_torch import graphs  # noqa: E402
 from ssvio_tpu_torch import map as mapmod  # noqa: E402
@@ -44,6 +50,8 @@ from ssvio_tpu_torch.utils import profiling  # noqa: E402
 import torch_tools as tools  # noqa: E402
 
 BA_REPS = 5
+BA_STAGES = ("local_ba", "keyframe_branch", "keyframe_frame graph",
+             "local_ba graph")
 
 
 def settings() -> Settings:
@@ -106,6 +114,15 @@ def stages(front: fe.Frontend, inp: dict) -> "OrderedDict[str, callable]":
                                      front._cx, front._cy)
     lm_args = (eye, t["lm_pos"][:n], t["uv"], feat.valid)
     lm_graph = graphs.StaticGraph(lm, *lm_args)
+    # the keyframe branch of a steady keyframe: img2 as the right frame
+    engine = eng.Engine(front, enable_backend=True)
+    kf_args = (t["img2"], pyr, feat, eye, eye, m)
+    kf_graph = graphs.KeyframeGraph(engine.keyframe_branch, *kf_args)
+
+    def bundle(p):
+        return ba.local_ba(p, front._fx, front._fy, front._cx, front._cy,
+                           front._baseline)
+    ba_graph = graphs.StaticGraph(bundle, prob)
     return OrderedDict([
         ("build_pyramid", lambda: front._build_pyramid(t["img"])),
         ("track_step", lambda: front._track_step(
@@ -128,6 +145,10 @@ def stages(front: fe.Frontend, inp: dict) -> "OrderedDict[str, callable]":
                                          front._baseline)),
         ("track_frame graph", lambda: track_graph(t["img2"], *track_args)),
         ("pose_only_optimize graph", lambda: lm_graph(*lm_args)),
+        ("keyframe_branch", lambda: engine.keyframe_branch(
+            *kf_args, is_init=False)),
+        ("keyframe_frame graph", lambda: kf_graph(*kf_args)),
+        ("local_ba graph", lambda: ba_graph(prob)),
     ])
 
 
@@ -146,7 +167,7 @@ def main(argv=None) -> dict:
     out = OrderedDict()
     with torch.no_grad():
         for name, fn in stages(front, inputs(s, w, h)).items():
-            reps = BA_REPS if name == "local_ba" else args.reps
+            reps = BA_REPS if name in BA_STAGES else args.reps
             ms = profiling.timeit(fn, n=reps, warmup=1, device=dev)
             n0 = tools.launch_counts()
             fn()

@@ -25,7 +25,15 @@ chunk is returned beside the trace's counts: the profiler can drop events
 on a long trace, so the two are held against each other (kernel #1's
 events are named `level_kernel`; the profiler reports the kernels a CUDA
 graph launches, each as its own event). The System runs its default
-path, the tracking graph on a card (`path` in the result).
+path, both graphs on a card (`path` in the result); the keyframe graph
+is built before the traced chunk (torch_profile_engine.warm_graphs).
+
+Then one steady keyframe frame alone (`keyframe_frame`): from the same
+state the frames after it run one at a time through `Engine._step` until
+one turns into a steady keyframe (at most KF_SEARCH frames), and that
+frame runs twice from the carry before it, untraced and traced (a chrome
+trace in `--out`/keyframe), with the same summary: its ms, device ms,
+busy share over the untraced span, kernels and top ops.
 
 It runs on the current CUDA device unless --device names another
 (--device cpu for the CPU; there the trace holds no device events);
@@ -50,10 +58,51 @@ sys.path.insert(0, REPO)
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 import torch_profile_engine as tpe  # noqa: E402
+from ssvio_tpu_torch import frontend as fe  # noqa: E402
 from ssvio_tpu_torch.utils import profiling  # noqa: E402
 import torch_tools as tools  # noqa: E402
 
 KERNEL1 = "level_kernel"     # kernel #1's events (lk_level.cu)
+KF_SEARCH = 24               # frames searched for a steady keyframe
+
+
+def _summary(path: str, untraced_ms: float, frames: int) -> dict:
+    summ = profiling.trace_summary(os.path.join(path, profiling.TRACE_FILE))
+    return dict(trace=os.path.join(path, profiling.TRACE_FILE),
+                window_ms=summ["window_ms"], untraced_ms=untraced_ms,
+                stretch=summ["window_ms"] / untraced_ms,
+                device_ms=summ["device_ms"],
+                busy_share=summ["device_ms"] / untraced_ms,
+                traced_busy_share=summ["busy_share"],
+                n_kernels=summ["n_kernels"],
+                kernels_per_frame=summ["n_kernels"] / frames,
+                top_ops=summ["top_ops"], launches=summ["launches"])
+
+
+def keyframe_frame(sys_, L, R, out: str, dev) -> dict:
+    """The first steady keyframe among the frames L, R (device, padded)
+    from the System's state, run alone untraced and traced (module
+    docstring). The System's state is left as it was."""
+    engine = sys_._engine
+    c = sys_._carry()
+    for k in range(len(L)):
+        c2, fr = engine._step(c, L[k], lambda k=k: R[k])
+        if fr.keyframe and c.status != fe.INITING:
+            break
+        c = c2
+    else:
+        raise RuntimeError(f"no steady keyframe in {len(L)} frames")
+    tools.synchronize(dev)
+    t0 = time.perf_counter()
+    engine._step(c, L[k], lambda: R[k])
+    tools.synchronize(dev)
+    untraced_ms = 1e3 * (time.perf_counter() - t0)
+    n0 = tools.launch_counts()
+    with profiling.trace(out):
+        engine._step(c, L[k], lambda: R[k])
+    res = _summary(out, untraced_ms, 1)
+    res.update(frame=k, counter_launches=tools.launches_since(n0))
+    return res
 
 
 def main(argv=None) -> dict:
@@ -70,6 +119,8 @@ def main(argv=None) -> dict:
     print(card)
     K = args.chunk
     sys_, up = tpe.steady_chunk(K, dev)
+    _, L, R = tpe.bench_frames(sys_.s, 2 * K + KF_SEARCH, dev,
+                               (sys_.h, sys_.w), u8=True)
     with torch.no_grad():
         snap = tools.snapshot(sys_)
         tools.synchronize(dev)
@@ -82,36 +133,36 @@ def main(argv=None) -> dict:
         with profiling.trace(args.out):
             sys_.run_chunk(*up)
         counted = tools.launches_since(n0)
-    summ = profiling.trace_summary(os.path.join(args.out,
-                                                profiling.TRACE_FILE))
-    traced_k1 = sum(v for k, v in summ["launches"].items() if KERNEL1 in k)
-    res = dict(card=card, device=str(dev), chunk=K,
+        tools.restore(sys_, snap)
+        kf = keyframe_frame(sys_, L[2 * K:], R[2 * K:],
+                            os.path.join(args.out, "keyframe"), dev)
+    res = _summary(args.out, untraced_ms, K)
+    traced_k1 = sum(v for k, v in res["launches"].items() if KERNEL1 in k)
+    res.update(card=card, device=str(dev), chunk=K,
                path=sys_._engine.tracking_path,
-               trace=os.path.join(args.out, profiling.TRACE_FILE),
-               window_ms=summ["window_ms"], untraced_ms=untraced_ms,
-               stretch=summ["window_ms"] / untraced_ms,
-               device_ms=summ["device_ms"],
-               busy_share=summ["device_ms"] / untraced_ms,
-               traced_busy_share=summ["busy_share"],
-               n_kernels=summ["n_kernels"],
-               kernels_per_frame=summ["n_kernels"] / K,
-               top_ops=summ["top_ops"], launches=summ["launches"],
+               keyframe_path=sys_._engine.keyframe_path,
                counter_launches=counted, trace_kernel1=traced_k1,
-               statuses=[int(sys_.status)])
-    print(f"tracking path: {res['path']}")
-    print(f"chunk of {K}: untraced {untraced_ms:.1f} ms, traced "
-          f"{summ['window_ms']:.1f} ms (stretch {res['stretch']:.3f}); "
-          f"device busy {summ['device_ms']:.1f} ms: busy share "
-          f"{res['busy_share']:.4f} of the untraced span "
-          f"({summ['busy_share']:.4f} of the traced); "
-          f"{summ['n_kernels']} kernels ({summ['n_kernels'] / K:.0f} a "
-          "frame)")
+               statuses=[int(sys_.status)], keyframe_frame=kf)
+    print(f"tracking path: {res['path']}, keyframe path: "
+          f"{res['keyframe_path']}")
+    for tag, r, n in ((f"chunk of {K}", res, K),
+                      (f"steady keyframe frame (frame {kf['frame']} of the "
+                       "chunk on)", kf, 1)):
+        print(f"{tag}: untraced {r['untraced_ms']:.1f} ms, traced "
+              f"{r['window_ms']:.1f} ms (stretch {r['stretch']:.3f}); "
+              f"device busy {r['device_ms']:.1f} ms: busy share "
+              f"{r['busy_share']:.4f} of the untraced span "
+              f"({r['traced_busy_share']:.4f} of the traced); "
+              f"{r['n_kernels']} kernels ({r['n_kernels'] / n:.0f} a "
+              "frame)")
+        for name, cnt, ms in r["top_ops"]:
+            print(f"  {ms:9.3f} ms  {cnt:6d}x  {name[:100]}")
     print(f"kernel #1: {traced_k1} in the trace, {counted['lk_level']} by "
           "its counter")
-    for name, n, ms in summ["top_ops"]:
-        print(f"  {ms:9.3f} ms  {n:6d}x  {name[:100]}")
-    print("TRACE " + json.dumps({k: v for k, v in res.items()
-                                 if k != "launches"}))
+    print("TRACE " + json.dumps(
+        {k: ({a: b for a, b in v.items() if a != "launches"}
+             if k == "keyframe_frame" else v)
+         for k, v in res.items() if k != "launches"}))
     return res
 
 

@@ -6,8 +6,9 @@ frontend.hpp:25-31), projection-seeded LK against the last frame with a
 forward-backward gate, 4x10 pose-only LM, keyframe creation with masked
 re-detection, stereo LK both ways, triangulation and map insertion
 (reference src/ssvio/frontend.cpp). The JAX package jits these steps; here
-they run eagerly on the Frontend's device, and the tracking half of a frame
-(`track_frame`) is captured into a CUDA graph on the card (`graphs.py`).
+they run eagerly on the Frontend's device, and on the card the tracking half
+of a frame (`track_frame`) and the keyframe half (`_keyframe_core`, inside
+the engine's keyframe branch) are captured into CUDA graphs (`graphs.py`).
 """
 
 from __future__ import annotations
@@ -274,12 +275,14 @@ class Frontend:
         return xy_r, ok
 
     # ------------------------------------------------------------------
-    def _keyframe_step(self, pyr_l: Pyr, pyr_r: Pyr, feat: FeatState, T_cw,
-                      m: mapmod.MapState, budget: int | None = None):
-        """Re-detect, stereo-match, triangulate new landmarks, insert KF.
+    def _keyframe_core(self, pyr_l: Pyr, pyr_r: Pyr, feat: FeatState, T_cw,
+                       m: mapmod.MapState, budget: int | None = None):
+        """Re-detect, stereo-match, triangulate new landmarks, insert KF,
+        with no host read (the keyframe branch of the engine's step, which
+        `graphs.KeyframeGraph` captures).
 
         Returns (feat', map', kf_slot, kf_gid, n_landmarks_created,
-        n_stereo); the last four are ints."""
+        n_stereo); the last four are int32 0-d tensors."""
         feat2, is_new = self._detect_merge(pyr_l.levels[0], feat, budget=budget)
         # generation check: a stale slot link must not register observations
         lm_idx2 = _link(feat2.lm_slot, m.lm_pos.shape[0])
@@ -300,7 +303,7 @@ class Frontend:
         new_lm = is_new & has_r & tri_ok & depth_ok
         p_w = camera.camera2world(T_cw, p_cam)
 
-        m2, kf_slot, kf_gid = mapmod.insert_keyframe(
+        m2, kf_slot, kf_gid = mapmod.insert_keyframe_device(
             m, T_cw, feat2.lm_slot, feat2.xy, xy_r, has_r, feat2.valid)
         m3, lm_slots = mapmod.add_landmarks(
             m2, kf_slot, kf_gid, p_w, feat2.xy, xy_r, has_r, new_lm)
@@ -311,5 +314,18 @@ class Frontend:
                           lm_gid=torch.where(created, new_gid, feat2.lm_gid),
                           valid=feat2.valid & ((feat2.lm_slot >= 0) | created),
                           octave=feat2.octave)
-        return (feat3, m3, kf_slot, kf_gid, int(torch.sum(created)),
-                int(torch.sum(has_r)))
+        return (feat3, m3, kf_slot, kf_gid,
+                torch.sum(created, dtype=torch.int32),
+                torch.sum(has_r, dtype=torch.int32))
+
+    def _keyframe_step(self, pyr_l: Pyr, pyr_r: Pyr, feat: FeatState, T_cw,
+                       m: mapmod.MapState, budget: int | None = None):
+        """`_keyframe_core` with its four counts read back as ints (the
+        relocalization's keyframe, and the tests).
+
+        Returns (feat', map', kf_slot, kf_gid, n_landmarks_created,
+        n_stereo)."""
+        feat3, m3, kf_slot, kf_gid, n_created, n_stereo = self._keyframe_core(
+            pyr_l, pyr_r, feat, T_cw, m, budget=budget)
+        return (feat3, m3, int(kf_slot), int(kf_gid), int(n_created),
+                int(n_stereo))

@@ -1,23 +1,29 @@
-"""The tracking half of the per-frame step as one CUDA graph: the port's
-counterpart of `jax.jit(Engine._step)`'s `do_track` branch
-(`ssvio_tpu/engine.py:150-163`).
+"""The two branches of the per-frame step as CUDA graphs: the port's
+counterparts of `jax.jit(Engine._step)`'s `do_track` and `do_kf` branches
+(`ssvio_tpu/engine.py:149-236`).
 
-The JAX engine compiles the whole step into one program, so a tracked frame
-costs one dispatch. Eager PyTorch launches each of its ~9,000 small kernels
+The JAX engine compiles the whole step into one program, so a frame costs
+one dispatch. Eager PyTorch launches each of its thousands of small kernels
 from the host instead. `TrackGraph` captures `Frontend.track_frame`
 (undistortion, the LK pyramid with its Sobel planes, `_track_step`: the
 seeded forward and backward LK with the level kernels, the FB gate and the
 4 x 10 pose-only LM) once into a `torch.cuda.CUDAGraph` and replays it
-every tracked frame. `Engine._step` builds one per canvas shape and LK
-flavour at its first tracked frame.
+every tracked frame. `KeyframeGraph` captures `Engine.keyframe_branch` of
+a steady keyframe (the right pyramid, re-detection, stereo LK both ways,
+triangulation, the map inserts, the loop descriptors, the 5 x 10 local
+BA) and replays it every steady keyframe, after the frame's tracking
+replay. `Engine._step` builds one of each per canvas shape (the engine's
+settings fix the LK flavour) at its first frame of that branch.
 
-- Static buffers: the graph reads the left image, the last pyramid's
-  planes, the `FeatState` fields, `T_cw`, `rel_motion`, `lm_pos`,
-  `lm_valid` and `lm_gid` from buffers of its own. Every call copies the
-  carry into them: a keyframe, a BA refresh, a loop fusion, a
-  relocalization or a checkpoint load each replace the carry's tensors,
-  so tensor identity is never trusted. The map's share is small (`lm_pos`
-  8192 x 3 at the bench's size).
+- Static buffers: the tracking graph reads the left image, the last
+  pyramid's planes, the `FeatState` fields, `T_cw`, `rel_motion`,
+  `lm_pos`, `lm_valid` and `lm_gid` from buffers of its own; the keyframe
+  graph the right image, the frame's pyramid, the tracked features and
+  pose and the whole map (its `obs_uv` is 8192 x 16 x 2 x 2 f32 = 2 MiB
+  at the bench's size). Every call copies its inputs into them: a
+  keyframe, a BA refresh, a loop fusion, a relocalization or a checkpoint
+  load each replace the carry's tensors, so tensor identity is never
+  trusted.
 - Outputs: the next replay overwrites what the graph wrote, and some
   outputs are its input buffers (the pyramid's level 0 is the image, the
   features' slot links pass through). So every call returns clones: the
@@ -33,9 +39,10 @@ flavour at its first tracked frame.
   ran. The counters are set back after the capture, which records the
   launches it holds per kernel (`launches`), and every replay adds them.
   The warm-up's launches are real and stay counted; `warmup_launches`
-  records them (the module's `WARMUP_LAUNCHES` sums them over graphs, and
-  `REPLAYS` counts replays), so a caller that checks the counts against a
-  run's statuses can add them.
+  records them (the module's `WARMUP_LAUNCHES` sums them over graphs), so
+  a caller that checks the counts against a run's statuses can add them.
+  `KF_REPLAYS` counts the keyframe graphs' replays, `REPLAYS` the others'
+  (the tracking graphs' and the tools' single stages).
 - The `stats` pointer of the level kernels would be baked into the graph;
   the path passes none (the tools that pass stats run the kernels
   eagerly).
@@ -47,6 +54,7 @@ buffers without a capture, so the CPU tests exercise the copy-in and the
 copy-out.
 """
 
+import functools
 from typing import Callable, Dict, Optional
 
 import torch
@@ -55,11 +63,12 @@ from torch.utils import _pytree as pytree
 from ssvio_tpu_torch import frontend as fe
 from ssvio_tpu_torch.ops import lk_cuda, lk_patch_cuda, lk_variants_cuda
 
-# graph replays since the counters were last zeroed, and the kernel
-# launches of the graphs' warm-ups (real launches, counted by the
-# wrappers as well), by kernel: what a caller that checks the wrappers'
-# counters against a run's statuses reads beside them
+# graph replays since the counters were last zeroed (the keyframe graphs'
+# apart), and the kernel launches of the graphs' warm-ups (real launches,
+# counted by the wrappers as well), by kernel: what a caller that checks
+# the wrappers' counters against a run's statuses reads beside them
 REPLAYS = 0
+KF_REPLAYS = 0
 WARMUP_LAUNCHES: Dict[str, int] = {}
 
 
@@ -81,11 +90,11 @@ def _since(before: Dict[str, int]) -> Dict[str, int]:
 
 
 def zero_counts() -> None:
-    """Set every kernel's launch counter, REPLAYS and WARMUP_LAUNCHES to
-    0."""
-    global REPLAYS
+    """Set every kernel's launch counter, REPLAYS, KF_REPLAYS and
+    WARMUP_LAUNCHES to 0."""
+    global REPLAYS, KF_REPLAYS
     _set_counts(dict.fromkeys(launch_counts(), 0))
-    REPLAYS = 0
+    REPLAYS = KF_REPLAYS = 0
     WARMUP_LAUNCHES.clear()
 
 
@@ -148,8 +157,11 @@ class StaticGraph:
             _set_counts(before)
         self._graph = graph
 
-    def __call__(self, *inputs):
+    def _count_replay(self) -> None:
         global REPLAYS
+        REPLAYS += 1
+
+    def __call__(self, *inputs):
         leaves, spec = pytree.tree_flatten(inputs)
         if spec != self._spec:
             raise ValueError("graph inputs of another structure than the "
@@ -161,10 +173,10 @@ class StaticGraph:
             self._graph.replay()
             _set_counts({k: v + self.launches[k]
                          for k, v in launch_counts().items()})
-            REPLAYS += 1
+            self._count_replay()
             out = self._out
         self.calls += 1
-        return pytree.tree_map(torch.clone, out)
+        return pytree.tree_map_only(torch.Tensor, torch.clone, out)
 
     def close(self) -> None:
         """Drop the graph, its outputs and its buffers."""
@@ -185,3 +197,22 @@ class TrackGraph(StaticGraph):
         super().__init__(frontend.track_frame, img.to(torch.float32),
                          pyr_last, feat, T_cw, rel_motion, lm_pos, lm_valid,
                          lm_gid)
+
+
+class KeyframeGraph(StaticGraph):
+    """`Engine.keyframe_branch` of a steady keyframe as a StaticGraph,
+    built from the first steady keyframe, whose inputs set the shapes. A
+    call takes the branch's arguments but `is_init` (the right frame in
+    any dtype, promoted to float32 by the copy) and returns its
+    KeyframeOut. Its replays count in KF_REPLAYS."""
+
+    def __init__(self, branch: Callable, img_r: torch.Tensor, pyr_l: fe.Pyr,
+                 feat: fe.FeatState, T_cw: torch.Tensor,
+                 rel_motion: torch.Tensor, m):
+        super().__init__(functools.partial(branch, is_init=False),
+                         img_r.to(torch.float32), pyr_l, feat, T_cw,
+                         rel_motion, m)
+
+    def _count_replay(self) -> None:
+        global KF_REPLAYS
+        KF_REPLAYS += 1

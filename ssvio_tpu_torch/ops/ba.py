@@ -9,11 +9,12 @@
   [M, W, C] observation table, Schur complement of the 3x3 landmark blocks,
   g2o's gain-ratio LM schedule and the inlier-ratio round loop.
 
-The pose-only LM runs JAX's `while_loop` as a fixed trip of `iters` steps
-whose state freezes once its stop flag is set, with no host read, so the
-tracking step is captured into a CUDA graph (`graphs.py`). `local_ba`'s
-loops, on the keyframe branch, still read their stop flags on the host
-(`.item()`), which gives the same answer as JAX's. Solves use
+JAX's `while_loop`s run as fixed trips whose state freezes once the stop
+flag is set, with no host read, so the tracking and keyframe steps are
+captured into CUDA graphs (`graphs.py`): the pose-only LM takes `iters`
+steps a round, `local_ba` `iters` steps in each of `max_rounds` rounds
+(5 x 10 = 50 LM steps, where JAX's loops may stop sooner; each result
+counts the rounds and steps the loops would have run). Solves use
 `torch.linalg.solve_ex`, which returns inf/nan on a singular system instead
 of raising, as `jnp.linalg.solve` does; the finiteness test then rejects
 the step.
@@ -22,13 +23,15 @@ the step.
 problem's landmark axis is this rank's shard (`parallel/dist_ba.py`), and
 the sums JAX takes with `psum`/`pmax`/`pmin` over the mesh axis are
 `torch.distributed.all_reduce`s over the mesh's process group, at the same
-places. Every stop flag the host reads is computed from reduced values, so
-all ranks leave both loops on the same iteration.
+places. That path is driven from the host over its process group and
+keeps the loops that read their stop flags on the host (`.item()`), each
+computed from reduced values, so all ranks leave both loops on the same
+iteration.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 import torch.distributed as dist
@@ -257,6 +260,10 @@ class LocalBAResult(NamedTuple):
     obs_valid: torch.Tensor    # [M, W, C] with outlier edges detached
     chi2: torch.Tensor         # [M, W, C] final per-edge chi2
     inlier_ratio: torch.Tensor # [] float32
+    # [] int32: the rounds and LM steps JAX's while_loops run (the fixed
+    # trip runs them all and freezes the state after the stop)
+    rounds: Optional[torch.Tensor] = None
+    iterations: Optional[torch.Tensor] = None
 
 
 def _ba_residuals(prob: LocalBAProblem, kf_T_cw, lm_pos, fx, fy, cx, cy, bl):
@@ -388,7 +395,7 @@ def _schur_solve(Hpp, Hll, Hpl, bp, blm, lam, pose_free, lm_free,
     bs = bp - corr
 
     Sd = S.permute(0, 2, 1, 3).reshape(W * 6, W * 6)
-    free = pose_free.repeat_interleave(6)
+    free = pose_free[:, None].expand(W, 6).reshape(-1)
     Sd = Sd * (free[:, None] * free[None, :]) \
         + torch.diag(torch.where(free > 0, 0.0, 1.0).to(dt))
     rhs = bs.reshape(-1) * free
@@ -410,21 +417,35 @@ def local_ba(prob: LocalBAProblem, fx, fy, cx, cy, baseline,
     once the inlier ratio exceeds `target_inlier_ratio`; then outlier edges
     are detached (reference backend.cpp:172-227).
 
+    Without a mesh both loops are fixed trips with no host read: an LM
+    step whose stop flag is set leaves T, lp, lam, nu and the blocks as
+    they were, and a round after the ratio flag leaves the poses, the
+    landmarks and the inlier edges, which is the state JAX's two
+    `while_loop`s leave (ssvio_tpu/ops/ba.py:516, :546).
+
     `mesh` (`parallel.dist_ba.Mesh`): `prob`'s landmark fields are this
     rank's shard and every rank of the mesh calls local_ba together. The
     poses and the inlier ratio come out equal on every rank; lm_pos,
-    obs_valid and chi2 are the shard's."""
-    bl = torch.as_tensor(baseline, dtype=torch.float32,
-                         device=prob.lm_pos.device)
+    obs_valid and chi2 are the shard's. Its loops break on flags read on
+    the host."""
+    dev = prob.lm_pos.device
+    bl = (baseline.to(device=dev, dtype=torch.float32)
+          if torch.is_tensor(baseline) else
+          torch.full((), float(baseline), dtype=torch.float32, device=dev))
     pose_free = (prob.kf_valid & ~prob.kf_fixed).to(torch.float32)
     lm_has_obs = torch.any(prob.obs_valid.flatten(1), dim=1)
     lm_free = (prob.lm_valid & ~prob.lm_fixed & lm_has_obs).to(torch.float32)
+    fixed_trip = mesh is None
+    # the LM steps the while_loops would run (the fixed trip runs them all)
+    n_steps = torch.zeros((), dtype=torch.int32, device=dev)
 
-    def lm_inner(kf_T_cw, lm_pos, edge_active, n_iters):
+    def lm_inner(kf_T_cw, lm_pos, edge_active, n_iters, live_round):
+        nonlocal n_steps
         blocks = _ba_cost_and_blocks(prob, kf_T_cw, lm_pos, fx, fy, cx, cy,
                                      bl, edge_active, mesh)
         lam = 1e-5 * torch.max(torch.diagonal(blocks[1], dim1=1, dim2=2))
-        nu = torch.tensor(2.0, device=lam.device)
+        nu = torch.full((), 2.0, dtype=lam.dtype, device=dev)
+        live = live_round
         T, lp = kf_T_cw, lm_pos
         for _ in range(n_iters):
             F, Hpp, Hll, Hpl, bp, blm = blocks
@@ -451,17 +472,22 @@ def local_ba(prob: LocalBAProblem, fx, fy, cx, cy, baseline,
                 finite = not_finite == 0
             pred = 0.5 * (torch.sum(dxp * (lam * dxp + bp)) + pred_l)
             rho = (F - blocks_new[0]) / torch.clamp(pred, min=1e-9)
-            accept = (rho > 0) & finite
+            # a stopped loop's state stays as it was (the fixed trip)
+            accept = (rho > 0) & finite & live
             T = torch.where(accept, T_new, T)
             lp = torch.where(accept, lp_new, lp)
             blocks = tuple(torch.where(accept, n, o)
                            for n, o in zip(blocks_new, blocks))
-            lam = torch.where(
+            lam_next = torch.where(
                 accept,
                 lam * torch.clamp(1.0 - (2.0 * rho - 1.0) ** 3, min=1.0 / 3.0),
                 lam * nu)
-            nu = torch.where(accept, torch.full_like(nu, 2.0), nu * 2.0)
-            if bool(((step < 1e-5) & finite).item()):
+            nu_next = torch.where(accept, torch.full_like(nu, 2.0), nu * 2.0)
+            lam = torch.where(live, lam_next, lam)
+            nu = torch.where(live, nu_next, nu)
+            n_steps = n_steps + live.to(torch.int32)
+            live = live & ~((step < 1e-5) & finite)
+            if not fixed_trip and not bool(live.item()):
                 break
         return T, lp
 
@@ -476,14 +502,23 @@ def local_ba(prob: LocalBAProblem, fx, fy, cx, cy, baseline,
     n_act = torch.clamp(total(torch.sum(base_active)), min=1)
     kf_T_cw, lm_pos = prob.kf_T_cw, prob.lm_pos
     inlier_edges = torch.ones_like(prob.obs_valid)
+    live = torch.ones((), dtype=torch.bool, device=dev)   # ~done
+    n_rounds = torch.zeros((), dtype=torch.int32, device=dev)
     for _ in range(max_rounds):
-        kf_T_cw, lm_pos = lm_inner(kf_T_cw, lm_pos, base_active & inlier_edges,
-                                   iters)
-        r, _, z_ok = _ba_residuals(prob, kf_T_cw, lm_pos, fx, fy, cx, cy, bl)
-        inlier_edges = (torch.sum(r * r, dim=-1) < BACKEND_CHI2_TH) \
+        T_r, lp_r = lm_inner(kf_T_cw, lm_pos, base_active & inlier_edges,
+                             iters, live)
+        r, _, z_ok = _ba_residuals(prob, T_r, lp_r, fx, fy, cx, cy, bl)
+        inl_r = (torch.sum(r * r, dim=-1) < BACKEND_CHI2_TH) \
             & z_ok[..., None]
-        ratio = total(torch.sum(inlier_edges & base_active)) / n_act
-        if bool((ratio > target_inlier_ratio).item()):
+        ratio = total(torch.sum(inl_r & base_active)) / n_act
+        done = ratio > target_inlier_ratio
+        # the rounds after the ratio flag change nothing (the fixed trip)
+        n_rounds = n_rounds + live.to(torch.int32)
+        kf_T_cw = torch.where(live, T_r, kf_T_cw)
+        lm_pos = torch.where(live, lp_r, lm_pos)
+        inlier_edges = torch.where(live, inl_r, inlier_edges)
+        live = live & ~done
+        if not fixed_trip and not bool(live.item()):
             break
 
     r, _, z_ok = _ba_residuals(prob, kf_T_cw, lm_pos, fx, fy, cx, cy, bl)
@@ -491,4 +526,4 @@ def local_ba(prob: LocalBAProblem, fx, fy, cx, cy, baseline,
     final_inlier = (chi2 < BACKEND_CHI2_TH) & z_ok[..., None]
     ratio = total(torch.sum(final_inlier & base_active)) / n_act
     return LocalBAResult(kf_T_cw, lm_pos, prob.obs_valid & final_inlier, chi2,
-                         ratio.to(torch.float32))
+                         ratio.to(torch.float32), n_rounds, n_steps)

@@ -30,6 +30,21 @@ PATCH_RADIUS = 15          # IC-angle circular patch radius
 DESC_BITS = 256
 DESC_WORDS = 8             # 32-bit words per descriptor
 
+# the constant tables on each device they were used on (_device_table)
+_DEVICE_TABLES: dict = {}
+
+
+def _device_table(key, device: torch.device, make) -> torch.Tensor:
+    """The numpy table `make()` as a tensor on `device`, copied there once
+    per (key, device), as the numpy side caches with lru_cache: a copy
+    from pageable host memory on every call would be a host-to-device
+    transfer that a CUDA graph cannot capture."""
+    t = _DEVICE_TABLES.get((key, device))
+    if t is None:
+        t = torch.from_numpy(np.ascontiguousarray(make())).to(device)
+        _DEVICE_TABLES[(key, device)] = t
+    return t
+
 
 @functools.lru_cache()
 def brief_pattern(seed: int = 1234) -> np.ndarray:
@@ -59,8 +74,8 @@ def _ic_angle_offsets() -> Tuple[np.ndarray, np.ndarray]:
 def ic_angle(img: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
     """Intensity-centroid orientation per keypoint: atan2(m01, m10) over
     the circular radius-15 patch. img [H, W] float32; xy [N, 2] -> [N]."""
-    _, offs_f = _ic_angle_offsets()
-    offs = torch.from_numpy(offs_f).to(img.device)
+    offs = _device_table("ic_offsets", img.device,
+                         lambda: _ic_angle_offsets()[1])
     vals = sampling.gather_nn(img, xy[:, None, :] + offs)       # [N, K]
     m10 = torch.sum(vals * offs[None, :, 0], dim=1)
     m01 = torch.sum(vals * offs[None, :, 1], dim=1)
@@ -85,7 +100,7 @@ def ic_angle_conv(img: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
     so the kernel is not flipped. Equal to ic_angle up to summation order
     where the full patch is in bounds; border keypoints differ (zero pad
     against clamp) and descriptor validity excludes them."""
-    k = torch.from_numpy(_moment_kernel()).to(img.device)
+    k = _device_table("moment_kernel", img.device, _moment_kernel)
     m = F.conv2d(img[None, None], k, padding=PATCH_RADIUS)
     c = torch.round(xy)
     m10 = sampling.gather_nn(m[0, 0], c)
@@ -122,9 +137,10 @@ def ic_angle_integral(img: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
     II = torch.cat([z, torch.cumsum(img, dim=1)], dim=1)         # [H, W+1]
     xs = torch.arange(W, dtype=img.dtype, device=dev)
     Ix = torch.cat([z, torch.cumsum(img * xs[None, :], dim=1)], dim=1)
-    dys, ws = _circle_rows()
-    dys_d = torch.from_numpy(dys).to(dev).long()
-    ws_d = torch.from_numpy(ws).to(dev).long()
+    dys_d = _device_table("circle_dy", dev,
+                          lambda: _circle_rows()[0].astype(np.int64))
+    ws_d = _device_table("circle_w", dev,
+                         lambda: _circle_rows()[1].astype(np.int64))
     c = torch.round(xy).long()
     cy = torch.clamp(c[:, 1:2] + dys_d[None, :], 0, H - 1)       # [N, 31]
     lo = torch.clamp(c[:, 0:1] - ws_d[None, :], 0, W)
@@ -172,7 +188,7 @@ def _bit_weights() -> np.ndarray:
 def _pack_bits(bits: torch.Tensor) -> torch.Tensor:
     """[N, 256] bool -> [N, 8] int32, bit k of word w = bits[:, 32 w + k]
     (little-endian within words, as the JAX package packs uint32)."""
-    w = torch.from_numpy(_bit_weights()).to(bits.device)
+    w = _device_table("bit_weights", bits.device, _bit_weights)
     b = bits.reshape(-1, DESC_WORDS, 32).to(torch.int32)
     return torch.sum(b * w[None, None, :], dim=-1, dtype=torch.int32)
 
@@ -197,7 +213,9 @@ def compute_descriptors(img_blurred: torch.Tensor, xy: torch.Tensor,
     (load_pattern_file), else the seeded procedural one. Returns [N, 8]
     int32 (256 bits, little-endian within words)."""
     pat_np = brief_pattern(seed) if pattern is None else np.asarray(pattern)
-    pat = torch.from_numpy(pat_np.astype(np.float32)).to(img_blurred.device)
+    pat = _device_table(("brief", pat_np.dtype.str, pat_np.shape,
+                         pat_np.tobytes()), img_blurred.device,
+                        lambda: pat_np.astype(np.float32))
     v1 = sampling.gather_nn(img_blurred,
                             _rotated_taps(pat[:, 0], pat[:, 1], xy, angle))
     v2 = sampling.gather_nn(img_blurred,
@@ -236,13 +254,14 @@ def compute_descriptors_pool(img_blurred: torch.Tensor, xy: torch.Tensor,
     """Steered BRIEF with the pooled pattern: one 256-tap gather per
     keypoint; the pair comparisons index the pooled values. Same contract
     and packing as compute_descriptors."""
-    pts, pairs = brief_pool_pattern(seed)
     dev = img_blurred.device
-    pat = torch.from_numpy(pts.astype(np.float32)).to(dev)
+    pat = _device_table(("pool_points", seed), dev,
+                        lambda: brief_pool_pattern(seed)[0].astype(np.float32))
     v = sampling.gather_nn(img_blurred,
                            _rotated_taps(pat[:, 0], pat[:, 1], xy, angle))
-    ia = torch.from_numpy(pairs[:, 0]).to(dev).long()
-    ib = torch.from_numpy(pairs[:, 1]).to(dev).long()
+    pairs = _device_table(("pool_pairs", seed), dev,
+                          lambda: brief_pool_pattern(seed)[1].astype(np.int64))
+    ia, ib = pairs[:, 0], pairs[:, 1]
     return _pack_bits(v[:, ia] < v[:, ib])
 
 

@@ -11,6 +11,7 @@ convolution and no TF32 question arises here.
 
 from __future__ import annotations
 
+import functools
 from typing import List, Tuple
 
 import numpy as np
@@ -49,16 +50,26 @@ def _bilinear_resize_weights(src: int, dst: int, scale: float
     return i0, i1, frac
 
 
+@functools.lru_cache(maxsize=None)
+def _resize_tables(h: int, w: int, out_h: int, out_w: int,
+                   device: torch.device) -> Tuple[torch.Tensor, ...]:
+    """resize_bilinear's index and weight tables on `device`, built once
+    per (source, destination, device): a copy from pageable host memory
+    on every call would be a host-to-device transfer that a CUDA graph
+    cannot capture."""
+    yi0, yi1, yf = _bilinear_resize_weights(h, out_h, h / out_h)
+    xi0, xi1, xf = _bilinear_resize_weights(w, out_w, w / out_w)
+    return (torch.from_numpy(yi0).to(device), torch.from_numpy(yi1).to(device),
+            torch.from_numpy(xi0).to(device), torch.from_numpy(xi1).to(device),
+            torch.from_numpy(yf).to(device)[:, None],
+            torch.from_numpy(xf).to(device)[None, :])
+
+
 def resize_bilinear(img: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     """Static-shape bilinear resize of [H, W] -> [out_h, out_w]."""
     h, w = img.shape
-    dev = img.device
-    yi0, yi1, yf = _bilinear_resize_weights(h, out_h, h / out_h)
-    xi0, xi1, xf = _bilinear_resize_weights(w, out_w, w / out_w)
-    yi0, yi1 = torch.from_numpy(yi0).to(dev), torch.from_numpy(yi1).to(dev)
-    xi0, xi1 = torch.from_numpy(xi0).to(dev), torch.from_numpy(xi1).to(dev)
-    yf = torch.from_numpy(yf).to(dev)[:, None]
-    xf = torch.from_numpy(xf).to(dev)[None, :]
+    yi0, yi1, xi0, xi1, yf, xf = _resize_tables(h, w, out_h, out_w,
+                                                img.device)
     top = img[yi0][:, xi0] * (1 - xf) + img[yi0][:, xi1] * xf
     bot = img[yi1][:, xi0] * (1 - xf) + img[yi1][:, xi1] * xf
     return top * (1 - yf) + bot * yf

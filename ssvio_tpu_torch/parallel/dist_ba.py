@@ -176,7 +176,8 @@ def _exchange(mesh: Mesh, step, prob: Optional[ba.LocalBAProblem] = None):
     lm_pos, obs_valid, chi2 = torch.split(out, [3, W * C, W * C], dim=1)
     return ba.LocalBAResult(res.kf_T_cw, lm_pos.contiguous(),
                             obs_valid.reshape(M, W, C) > 0.5,
-                            chi2.reshape(M, W, C), res.inlier_ratio)
+                            chi2.reshape(M, W, C), res.inlier_ratio,
+                            res.rounds, res.iterations)
 
 
 class PrimaryBA:

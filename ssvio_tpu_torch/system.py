@@ -28,9 +28,10 @@ BA stays on this rank, as the JAX System's does.
 
 On a CUDA device the tracking branch of every tracked frame, on both paths
 and after a relocalization or a checkpoint load alike, replays the
-engine's tracking graph (`graphs.TrackGraph`); `eager=True` runs it op by
-op instead (the counterpart of `jax.disable_jit`). `close()` releases the
-graph's memory.
+engine's tracking graph (`graphs.TrackGraph`), and the keyframe branch of
+every steady keyframe its keyframe graph (`graphs.KeyframeGraph`; eager
+with a mesh); `eager=True` runs both op by op instead (the counterpart of
+`jax.disable_jit`). `close()` releases the graphs' memory.
 """
 
 from __future__ import annotations
@@ -204,7 +205,11 @@ class System:
         frame of the engine's step (engine.py), recorded at once, then loop
         closing for a keyframe. A frame entered in LOST relocalizes instead
         when loop closing and Settings.relocalization_open are on. Returns
-        the camera pose T_wc [3,4] np."""
+        the camera pose T_wc [3,4] np.
+
+        Host reads: the step's (`Engine._step`: a tracked frame's inlier
+        count, an init frame's gate), one packed read of a keyframe's
+        record (`_step_frame`), and the returned pose."""
         self.frame_id += 1
         if (self.status == fe.LOST and self.loopclosing is not None
                 and self.s.relocalization_open):
@@ -230,20 +235,32 @@ class System:
             self._health_window = (self._health_window + [n_inl])[-30:]
             self.track_health = float(np.median(self._health_window))
             self._add_health(float(n_inl))
-        if fr.kf_slot >= 0:
-            # the record and its odometry edge take the pose the keyframe
-            # was inserted at, as the JAX System's run_step does; the BA
-            # refresh below moves the record, not the edge
-            self._record_keyframe_at(fr.kf_gid, timestamp,
-                                     fr.T_kf.cpu().numpy(), self.frame_id)
+        if not fr.keyframe:
+            return
+        # a keyframe's record in one read: its gid, the pose it was
+        # inserted at and the window after the frame
+        m = carry.m
+        W = self.s.max_window
+        rec = torch.cat([fr.kf_gid.reshape(1).to(torch.float32),
+                         fr.T_kf.reshape(-1), m.kf_gid.to(torch.float32),
+                         m.kf_valid.to(torch.float32),
+                         m.kf_pose.reshape(-1)]).cpu().numpy()
+        gid = int(rec[0])
+        # the record and its odometry edge take the pose the keyframe was
+        # inserted at, as the JAX System's run_step does; the BA refresh
+        # below moves the record, not the edge
+        self._record_keyframe_at(gid, timestamp,
+                                 rec[1:13].reshape(3, 4).copy(), self.frame_id)
         if fr.ran_ba:
             self.stats["n_ba"] += 1
             self.stats["n_dist_ba"] += fr.ran_dist_ba
-            self._refresh_keyframe_records()
-        if fr.kf_slot >= 0 and self.loopclosing is not None:
+            self._refresh_keyframe_records(
+                (rec[13:13 + W].astype(np.int32), rec[13 + W:13 + 2 * W] > 0.5,
+                 rec[13 + 2 * W:].reshape(W, 3, 4)))
+        if self.loopclosing is not None:
             self._count_event(self.loopclosing.process_keyframe(
-                self, fr.kf_gid, carry.pyr_last, self.feat, self.map,
-                self.T_cw, desc=(fr.desc, fr.dval)))
+                self, gid, carry.pyr_last, self.feat, self.map, self.T_cw,
+                desc=(fr.desc, fr.dval)))
 
     def _count_event(self, ev: Optional[LoopEvent]):
         if ev is not None and ev.corrected:

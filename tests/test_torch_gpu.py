@@ -377,15 +377,17 @@ def test_tracking_graph_capture_on_gpu():
 
 
 def test_tracking_graph_replays_like_eager_on_gpu(monkeypatch):
-    """24 frames through run_step: the graph path (every replay under
+    """24 frames through run_step: the graph path (every replay of the
+    tracking and the keyframe graph under
     torch.cuda.set_sync_debug_mode("error"), so a synchronising call on
     its way raises) against the eager path on the card: equal statuses and
-    keyframes, positions within GRAPH_VS_EAGER_M, one graph replayed on
-    every tracked frame, kernel #1 launched as the statuses imply plus the
-    warm-up's launches."""
+    keyframes, positions within GRAPH_VS_EAGER_M, the tracking graph
+    replayed on every tracked frame and the keyframe graph on every steady
+    keyframe, kernel #1 launched as the statuses imply plus the warm-ups'
+    launches."""
     dev = _device()
     s, L, R = _small_sequence(dev)
-    call = graphs.TrackGraph.__call__
+    call = graphs.StaticGraph.__call__
 
     def replay_sync_free(self, *a):
         torch.cuda.set_sync_debug_mode("error")
@@ -396,9 +398,9 @@ def test_tracking_graph_replays_like_eager_on_gpu(monkeypatch):
 
     a = System(s, enable_backend=True, device=dev, eager=True)
     st_a = _run_steps(a, L, R)
-    monkeypatch.setattr(graphs.TrackGraph, "__call__", replay_sync_free)
+    monkeypatch.setattr(graphs.StaticGraph, "__call__", replay_sync_free)
     b = System(s, enable_backend=True, device=dev)
-    n0 = lk_cuda.LAUNCHES
+    graphs.zero_counts()
     st_b = _run_steps(b, L, R)
     assert st_b == st_a and fe.LOST not in st_a
     assert b.stats == a.stats and b.stats["n_keyframes"] >= 2
@@ -413,12 +415,57 @@ def test_tracking_graph_replays_like_eager_on_gpu(monkeypatch):
         x in (fe.TRACKING_GOOD, fe.TRACKING_BAD) and y == fe.TRACKING_BAD
         for x, y in zip(before, st_b))
     assert graph.calls == n_tracked > 10
+    (kf_graph,) = b._engine.kf_graphs.values()
+    n_steady = n_stereo - sum(x == fe.INITING for x in before)
+    assert kf_graph.calls == graphs.KF_REPLAYS == n_steady >= 1
+    assert graphs.REPLAYS == n_tracked
     levels = s.lk_levels
-    assert lk_cuda.LAUNCHES - n0 == (2 * levels * n_tracked
-                                     + 2 * (levels + 1) * n_stereo
-                                     + graph.warmup_launches["lk_level"])
+    assert lk_cuda.LAUNCHES == (2 * levels * n_tracked
+                                + 2 * (levels + 1) * n_stereo
+                                + graphs.WARMUP_LAUNCHES["lk_level"])
     b.close()
-    assert not b._engine.graphs
+    assert not b._engine.graphs and not b._engine.kf_graphs
+
+
+def test_keyframe_graph_capture_on_gpu():
+    """A KeyframeGraph captures the keyframe branch of a steady keyframe:
+    its replay equals the eager branch bit for bit (the fixed-trip BA
+    included), holds one kernel #1 launch a level of both stereo tracks,
+    counts them on every replay, and no replay waits for the device."""
+    dev = _device()
+    s, L, R = _small_sequence(dev)
+    sys_ = System(s, enable_backend=True, device=dev, eager=True)
+    i = 0
+    while sys_.status not in (fe.TRACKING_GOOD, fe.TRACKING_BAD):
+        sys_.run_step(L[i], R[i], 0.1 * i)
+        i += 1
+    eng = sys_._engine
+    c = sys_._carry()
+    pyr_l, out = eng._track(c, sys_._pad(L[i]))
+    args = (sys_._pad(R[i]), pyr_l, out.feat, out.T_cw, out.rel_motion, c.m)
+    ref = eng.keyframe_branch(*args, is_init=False)
+    graphs.zero_counts()
+    n0 = lk_cuda.LAUNCHES
+    graph = graphs.KeyframeGraph(eng.keyframe_branch, *args)
+    assert graph._graph is not None
+    want = dict(dict.fromkeys(graph.launches, 0),
+                lk_level=2 * (s.lk_levels + 1))
+    assert graph.launches == want and graph.warmup_launches == want
+    for _ in range(2):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = graph(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert lk_cuda.LAUNCHES - n0 == 3 * 2 * (s.lk_levels + 1)
+    assert graphs.KF_REPLAYS == 2 and graphs.REPLAYS == 0
+    lg, lr = (torch.utils._pytree.tree_leaves(r) for r in (got, ref))
+    assert [x is None for x in lg] == [x is None for x in lr]
+    for a, b in zip(lg, lr):
+        assert a is None or torch.equal(a, b)
+    assert int(ref.kf_slot) >= 0 and 1 <= int(ref.ba_trip[0]) <= 5
+    graph.close()
 
 
 # the staged level kernels: (counter, wrapper, plain version, keywords);

@@ -60,6 +60,7 @@ sys.path.insert(0, SCRIPTS)
 
 import kitti_poses_and_timestamps_to_trajectory as kitti_cli_j  # noqa: E402
 import torch_kitti_poses_and_timestamps_to_trajectory as kitti_cli  # noqa: E402
+import torch_ba_trips  # noqa: E402
 import torch_lk_kernel_outputs as tlo  # noqa: E402
 import torch_profile_ablation  # noqa: E402
 import torch_profile_chunk_pipeline  # noqa: E402
@@ -111,7 +112,7 @@ def TINY_LOOP():
 
 @pytest.fixture
 def tiny(monkeypatch):
-    for mod in (torch_profile_engine, torch_profile_stages):
+    for mod in (torch_profile_engine, torch_profile_stages, torch_ba_trips):
         monkeypatch.setattr(mod, "settings", TINY)
     monkeypatch.setattr(torch_profile_ingest, "settings", TINY_LOOP)
     monkeypatch.setattr(torch_profile_stages, "BA_REPS", 1)
@@ -191,7 +192,7 @@ TOOLS = ("torch_profile_stages", "torch_profile_engine",
          "torch_profile_chunk_pipeline", "torch_profile_transfer",
          "torch_profile_lk", "torch_profile_lk_kernels",
          "torch_profile_ingest", "torch_probe_gauge_invariance",
-         "torch_probe_tail_divergence")
+         "torch_probe_tail_divergence", "torch_ba_trips")
 
 
 @pytest.mark.parametrize("tool", TOOLS)
@@ -210,7 +211,9 @@ def test_stages_tool(tiny):
                                  "lk.track fwd", "pose_only_optimize",
                                  "keyframe_step", "fast.detect_grid",
                                  "local_ba", "track_frame graph",
-                                 "pose_only_optimize graph"]
+                                 "pose_only_optimize graph",
+                                 "keyframe_branch", "keyframe_frame graph",
+                                 "local_ba graph"]
     for v in r["stages"].values():
         assert v["ms"] > 0 and v["launches_per_call"] == {}
 
@@ -222,6 +225,19 @@ def test_engine_tool(tiny):
     assert r["track_ms_median"] > 0 and r["kf_ms_median"] > 0
     assert r["frame_ms_mean"] == pytest.approx(np.mean(r["frame_ms"]))
     assert len(r["chunk_ms"]) == 1 and r["chunk_ms_per_frame_median"] > 0
+
+
+def test_ba_trips_tool(tiny):
+    """The BA log of a run: one entry a steady keyframe, the rounds and
+    steps a fixed trip's loops would have run."""
+    r = torch_ba_trips.main(CPU + ["--frames", "12"])
+    assert r["n_ba"] == len(r["rounds"]) == len(r["steps"]) >= 1
+    assert r["n_ba"] == r["n_keyframes"] - 1          # all but the init's
+    assert all(1 <= a <= 5 and a <= b <= 10 * a
+               for a, b in zip(r["rounds"], r["steps"]))
+    assert r["steps_total"] == sum(r["steps"]) <= r["fixed_trip_steps"] \
+        == 50 * r["n_ba"]
+    assert r["path"] == "static buffers"
 
 
 def test_ablation_full_variant_equals_run_step(tiny):
@@ -244,6 +260,10 @@ def test_trace_tool(tiny, tmp_path):
     assert r["busy_share"] == r["traced_busy_share"] == 0.0  # no device
     assert r["trace_kernel1"] == r["counter_launches"]["lk_level"] == 0
     assert {"top_ops", "kernels_per_frame", "launches"} <= set(r)
+    kf = r["keyframe_frame"]
+    assert os.path.exists(tmp_path / "keyframe" / profiling.TRACE_FILE)
+    assert kf["untraced_ms"] > 0 and kf["busy_share"] == 0.0
+    assert 0 <= kf["frame"] < torch_profile_trace.KF_SEARCH
 
 
 def test_chunk_pipeline_tool(tiny, monkeypatch):
@@ -463,6 +483,13 @@ def test_graph_stages_equal_their_eager_stages(stage_pair):
     rg, re = port["pose_only_optimize graph"](), port["pose_only_optimize"]()
     for a, b in zip(rg, re):
         assert torch.equal(a, b)
+    for graph, eager in (("keyframe_frame graph", "keyframe_branch"),
+                         ("local_ba graph", "local_ba")):
+        rg, re = port[graph](), port[eager]()
+        lg, le = (torch.utils._pytree.tree_leaves(r) for r in (rg, re))
+        assert [x is None for x in lg] == [x is None for x in le]
+        for a, b in zip(lg, le):
+            assert a is None or torch.equal(a, b)
 
 
 # ---------------------------------------------------------------- the CLI
