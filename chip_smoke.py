@@ -40,7 +40,7 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    the plain versions) and its kernel's widest window (at WIDE_LEVEL; mm
    with _mm_tight); kernel #2's widest window is held in phase 3, at
    RobotCar level 0.
-Phases 4-11 run the System's default path: the tracking branch of every
+Phases 4-12 run the System's default path: the tracking branch of every
 tracked frame replays the engine's tracking graph (graphs.TrackGraph,
 one CUDA graph of the pyramid, the LK kernels and the pose-only LM,
 captured at the System's first tracked frame), and the keyframe branch
@@ -82,8 +82,9 @@ the graphs' memory pools).
    that waits for the device (an item(), a nonzero()) raises. Phase 4's
    and 5's checks on each run (launches as the statuses imply, tracking
    replays equal to the tracked frames and keyframe replays to the steady
-   keyframes on the graph path, none on the eager one); statuses and
-   keyframe counts equal across the four runs, positions within
+   keyframes on the graph path, none on the eager one), at least one
+   steady keyframe in every run (else the keyframe graph went untested);
+   statuses and keyframe counts equal across the four runs, positions within
    GRAPH_VS_EAGER_M between the paths (the largest differences printed).
    Then on the last tracked frame of the first graph run, eager and
    replayed from a graph of it, with CUDA-event ms of each: the pose-only
@@ -210,7 +211,25 @@ the graphs' memory pools).
    POSE_TOL_M up to the gauge). Prints each tool's numbers and the
    phase's seconds beside the card's name and power limit; its kernel
    launches join the kernel table's.
-12. prints the kernel table as one JSON line (with each kernel's bound,
+12. the bench (scripts/torch_bench.py; after phase 11, before phase 6)
+   through its main(argv) at a cut (BENCH_ENV, BENCH_FAST unset, its loop
+   bench BENCH_LOOP_LAPS laps and a quarter): the bench's configuration
+   (bench_loop_settings()) in chunks of 32 through the tracking and
+   keyframe graphs, the prefetcher pass, the loop bench and the scaling
+   subprocess. Checks: the median fps above 0 with no LOST frame, the
+   straight run's ATE under ATE_MAX_M, both branches on their graphs
+   with tracking replays equal to the tracked frames and keyframe replays
+   to the steady keyframes of the timed loops, kernel #1's launches there
+   as the frames' kinds imply and every other kernel 0 (over the whole
+   phase too), e2e_fps above 0, and the loop bench's revisit verified at
+   least once, with both runs' keyframe ATE under ATE_MAX_M. Its claim
+   that loop closing lowers the end drift is phase 8's, at two laps and a
+   quarter: at one lap and a quarter the revisit comes in the last chunks,
+   and the JAX bench on the same frames accepts no correction there and
+   ends where loop off does (tests/loop_bench_parity.py). Prints the
+   bench's line and the phase's seconds beside the card's name and power
+   limit.
+13. prints the kernel table as one JSON line (with each kernel's bound,
    bound_ms: the plane pixels the level needs over the memory rate, or
    its operations over the peak rate, BOUND_*), then the result line.
 """
@@ -227,7 +246,7 @@ import subprocess
 import sys
 import tempfile
 import time
-from concurrent.futures import ThreadPoolExecutor
+from unittest import mock
 
 import numpy as np
 import torch
@@ -254,6 +273,7 @@ from ssvio_tpu_torch.utils import checkpoint, profiling
 REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(REPO, "scripts"))
 import torch_ba_trips as ba_trips  # noqa: E402
+import torch_bench  # noqa: E402
 import torch_probe_gauge_invariance as gauge_probe  # noqa: E402
 import torch_profile_ablation as prof_ablation  # noqa: E402
 import torch_profile_engine as prof_engine  # noqa: E402
@@ -379,6 +399,11 @@ GAUGE_PREFIX, GAUGE_END = 10, 20    # the gauge probe's frames (its scene's
 OVERLAP_MIN = 0.5         # side-stream copies against the step: a share a
                           # serialised copy (near 0) cannot reach (on an
                           # H100 a turn gives 0.67-1.21, the median 0.9-1)
+# Phase 12: the bench (scripts/torch_bench.py) at a cut: two chunks of the
+# straight sequence, one timed pass, and its loop bench one lap and a
+# quarter (its default: 320 frames, 3 passes, 5 laps)
+BENCH_ENV = dict(BENCH_FRAMES="64", BENCH_LOOPS="1")
+BENCH_LOOP_LAPS = 1
 KERNELS = {
     "lk_level": dict(source="ssvio_tpu_torch/csrc/lk_level.cu",
                      replaces="ssvio_tpu/ops/lk_pallas.py:344"),
@@ -458,16 +483,9 @@ def phase_device() -> str:
 
 
 def phase_build() -> None:
-    t0 = time.perf_counter()
+    seconds = torch_bench.build_kernels()
     sources = (lk_cuda.SRC, lk_patch_cuda.SRC, *lkv.SRC.values())
-    with ThreadPoolExecutor(len(sources)) as ex:
-        list(ex.map(_nvcc.build, sources))
-    lk_cuda._library()
-    lk_patch_cuda._library()
-    for stem in lkv.SRC:
-        lkv._entry(stem)
-    print(f"build: {len(sources)} kernel sources in "
-          f"{time.perf_counter() - t0:.2f} s")
+    print(f"build: {len(sources)} kernel sources in {seconds:.2f} s")
     for src in sources:
         info = _nvcc.build_info[src.stem]
         print(f"  {info['path']} (nvcc {info['seconds']:.2f} s)")
@@ -979,26 +997,29 @@ def _mm_tight(lv, out_r, check=True) -> dict:
     return res
 
 
-def _implied_launches(before, after):
-    """Kernel launches that the statuses before and after each frame
-    imply: a stereo match (init attempt, steady keyframe, the keyframe of
-    a relocalization: a frame that entered LOST and left it) is 2 tracks x
-    4 levels, a tracked frame 2 tracks x 3 levels. Counts for a camera
-    whose level 0 stays on kernel #1 and for one whose level 0 takes
-    kernel #2."""
-    n_init = sum(b == fe.INITING for b in before)
-    tracked = [b in (fe.TRACKING_GOOD, fe.TRACKING_BAD) for b in before]
-    n_track = sum(tracked)
-    n_kf = sum(t and a == fe.TRACKING_BAD for t, a in zip(tracked, after))
-    n_reloc = sum(b == fe.LOST and a != fe.LOST
-                  for b, a in zip(before, after))
-    n_stereo = n_init + n_kf + n_reloc
-    return dict(n_init_attempts=n_init, n_tracked=n_track,
-                n_steady_keyframes=n_kf, n_relocalized=n_reloc,
-                level0_on_level=dict(lk_level=8 * n_stereo + 6 * n_track,
+def _launches_of(kinds) -> dict:
+    """Kernel launches that frames of each kind imply (the counts of
+    torch_bench.frame_kinds): a stereo match (init attempt, steady
+    keyframe, the keyframe of a relocalization) is 2 tracks x 4 levels, a
+    tracked frame 2 tracks x 3 levels. Counts for a camera whose level 0
+    stays on kernel #1 and for one whose level 0 takes kernel #2."""
+    n_stereo = (kinds["init_attempts"] + kinds["steady_keyframes"]
+                + kinds["relocalized"])
+    n_track = kinds["tracked"]
+    return dict(level0_on_level=dict(lk_level=8 * n_stereo + 6 * n_track,
                                      lk_patch=0),
                 level0_on_patch=dict(lk_level=6 * n_stereo + 4 * n_track,
                                      lk_patch=2 * n_stereo + 2 * n_track))
+
+
+def _implied_launches(before, after):
+    """The frames of each kind that the statuses before and after each
+    frame imply (a relocalization: a frame that entered LOST and left
+    it), and the kernel launches they imply (_launches_of)."""
+    k = torch_bench.frame_kinds(after, before)
+    return dict(n_init_attempts=k["init_attempts"], n_tracked=k["tracked"],
+                n_steady_keyframes=k["steady_keyframes"],
+                n_relocalized=k["relocalized"], **_launches_of(k))
 
 
 def _check_run(tag, sys_, after, est, poses, launches, expected):
@@ -1306,7 +1327,8 @@ def _turns(tag, run) -> list:
     ms = [r["ms_per_frame"] for r in runs]
     print(f"  {tag}: ms/frame eager {ms[0]:.2f}, graph {ms[1]:.2f}, graph "
           f"{ms[2]:.2f}, eager {ms[3]:.2f}; keyframes "
-          f"{[r['n_keyframes'] for r in runs]}; largest position "
+          f"{[r['n_keyframes'] for r in runs]} (steady "
+          f"{[r['n_steady_keyframes'] for r in runs]}); largest position "
           "differences (m) " + json.dumps(diff))
     if any(r["after"] != e1["after"] or r["n_keyframes"] != e1["n_keyframes"]
            for r in runs):
@@ -1336,8 +1358,12 @@ def phase_graph_vs_eager(kitti: Settings, robotcar: Settings, dev,
         _check_run(tag, sys_, after, est, poses, launches,
                    _expect(**imp[imp_key]))
         _check_replays(tag, imp, eager)
+        if imp["n_steady_keyframes"] < 1:
+            raise AssertionError(f"{tag}: no steady keyframe, so nothing "
+                                 "held the keyframe graph against eager")
         for k, v in launches.items():
             out["launches"][k] += v
+        return imp["n_steady_keyframes"]
 
     def kitti_run(eager):
         tag = f"run_step [{'eager' if eager else 'graph'}]"
@@ -1348,8 +1374,8 @@ def phase_graph_vs_eager(kitti: Settings, robotcar: Settings, dev,
             sys_, frames["L"], frames["R"],
             [i / kitti.fps for i in range(len(frames["L"]))])
         _, est = sys_.frame_trajectory()
-        counted(tag, sys_, before, after, est, frames["poses"], eager,
-                "level0_on_level")
+        n_steady = counted(tag, sys_, before, after, est, frames["poses"],
+                           eager, "level0_on_level")
         if not eager and not lm:
             lm.update(_lm_ms(sys_))
             ba_graph.update(_ba_ms(sys_))
@@ -1357,7 +1383,8 @@ def phase_graph_vs_eager(kitti: Settings, robotcar: Settings, dev,
         return dict(after=after, est=est, ms_per_frame=float(np.median(ms)),
                     mean_ms_per_frame=float(np.mean(ms)),
                     steady_kf_ms=_steady_kf_ms(ms, before, after)[0],
-                    n_keyframes=sys_.stats["n_keyframes"])
+                    n_keyframes=sys_.stats["n_keyframes"],
+                    n_steady_keyframes=n_steady)
 
     def robotcar_run(eager):
         tag = f"run_chunk [{'eager' if eager else 'graph'}]"
@@ -1367,12 +1394,13 @@ def phase_graph_vs_eager(kitti: Settings, robotcar: Settings, dev,
         after, chunk_ms, total_s = _drive_chunks(
             sys_, chunk_frames["L"], chunk_frames["R"], chunk_frames["ts"])
         _, est = sys_.frame_trajectory()
-        counted(tag, sys_, [fe.INITING] + after[:-1], after, est,
-                chunk_frames["poses"], eager, "level0_on_patch")
+        n_steady = counted(tag, sys_, [fe.INITING] + after[:-1], after, est,
+                           chunk_frames["poses"], eager, "level0_on_patch")
         sys_.close()
         return dict(after=after, est=est,
                     ms_per_frame=float(np.median(chunk_ms)) / CHUNK,
-                    total_s=total_s, n_keyframes=sys_.stats["n_keyframes"])
+                    total_s=total_s, n_keyframes=sys_.stats["n_keyframes"],
+                    n_steady_keyframes=n_steady)
 
     out["run_step"], out["run_step_diff_m"] = _turns(
         "run_step [kitti_bench]", kitti_run)
@@ -1803,12 +1831,8 @@ def _kf_metrics(sys_, poses) -> dict:
     gauge fixed on the first quarter of the keyframes."""
     _, est = sys_.keyframe_trajectory()
     gt = poses[[k["frame_id"] for k in sys_.keyframes]]
-    q = max(4, len(gt) // 4)
-    _, Rm, tr = ate.umeyama_alignment(est[:q, :, 3], gt[:q, :, 3])
-    end = est[-1, :, 3] @ Rm.T + tr
-    return dict(kf_ate_m=ate.ape_translation(est[:, :, 3],
-                                             gt[:, :, 3])["rmse"],
-                end_drift_m=float(np.linalg.norm(end - gt[-1, :, 3])))
+    m = ate.keyframe_drift(est[:, :, 3], gt[:, :, 3])
+    return dict(kf_ate_m=m["ate_rmse_m"], end_drift_m=m["end_drift_m"])
 
 
 def _timed_calls(obj, name, log):
@@ -2518,6 +2542,56 @@ def phase_profiling(dev, card: str) -> dict:
     return out
 
 
+def phase_bench(dev, card: str) -> dict:
+    """Phase 12 (module docstring)."""
+    t_phase = time.perf_counter()
+    print(f"the bench (scripts/torch_bench.py) at a cut: {BENCH_ENV}, "
+          f"loop bench {BENCH_LOOP_LAPS} lap(s) and a quarter")
+    with mock.patch.dict(os.environ, BENCH_ENV), \
+            mock.patch.object(torch_bench, "LOOP_LAPS", BENCH_LOOP_LAPS):
+        for k in ("BENCH_FAST", "BENCH_CHUNK"):
+            os.environ.pop(k, None)
+        _zero_launches()
+        out = torch_bench.main(["--device", str(dev)])
+        launches = _launches()
+    extra = out["extra"]
+    path, on, off = (extra["path"], extra["loop_bench"]["loop_on"],
+                     extra["loop_bench"]["loop_off"])
+    if not out["value"] > 0 or path["lost"]:
+        raise AssertionError(f"bench: {out['value']} fps, {path['lost']} "
+                             "LOST frames")
+    if not extra["ate_rmse_m"] < ATE_MAX_M:
+        raise AssertionError(f"bench: ATE {extra['ate_rmse_m']} m >= "
+                             f"{ATE_MAX_M} m")
+    if (path["tracking"], path["keyframe"]) != ("graph", "graph"):
+        raise AssertionError(f"bench: tracking {path['tracking']}, "
+                             f"keyframes {path['keyframe']}, not graphs")
+    _check_replays("bench", dict(n_tracked=path["tracked"],
+                                 n_steady_keyframes=path["steady_keyframes"]),
+                   replays=path["tracking_replays"],
+                   kf_replays=path["keyframe_replays"])
+    want = _expect(warmups={}, **_launches_of(path)["level0_on_level"])
+    if extra["kernel_launches"] != want:
+        raise AssertionError(f"bench: kernel launches over the timed loops "
+                             f"{extra['kernel_launches']} != {want} implied "
+                             "by the statuses")
+    if not launches["lk_level"] or any(v for k, v in launches.items()
+                                       if k != "lk_level"):
+        raise AssertionError(f"bench: kernel launches {launches}: kernel #1 "
+                             "only")
+    if not extra["e2e_fps"] > 0:
+        raise AssertionError(f"bench: e2e_fps {extra['e2e_fps']}")
+    if on["n_events"] < 1 or not max(on["ate_rmse_m"],
+                                     off["ate_rmse_m"]) < ATE_MAX_M:
+        raise AssertionError(f"bench: loop bench: {on['n_events']} "
+                             f"verifications, keyframe ATE loop on "
+                             f"{on['ate_rmse_m']} m, off {off['ate_rmse_m']} m")
+    wall = time.perf_counter() - t_phase
+    print(f"  [{card}] the bench's line: " + json.dumps(out))
+    print(f"  phase 12: {wall:.1f} s; launches {launches}")
+    return dict(launches=launches, wall_s=wall, result=out)
+
+
 def main() -> None:
     t_start = time.perf_counter()
     card = phase_device()
@@ -2540,6 +2614,7 @@ def main() -> None:
         drive = phase_driver(dev, card)
         dist_res = phase_dist_ba(kitti, dev, card, frames)
         prof = phase_profiling(dev, card)
+        bench_res = phase_bench(dev, card)
         flavours = phase_flavours(kitti, dev, frames, t_start)
     table = []
     for name, meta in KERNELS.items():
@@ -2555,6 +2630,7 @@ def main() -> None:
                       + drive["launches"][name]
                       + dist_res["launches"][name]
                       + prof["launches"][name]
+                      + bench_res["launches"][name]
                       + sum(f["launches"][name] for f in flavours.values())),
             max_abs_err=max(r["max_abs_err"] for r in mine),
             ms=big["ms"], plain_ms=big["plain_ms"], bound_ms=big["bound_ms"],

@@ -59,6 +59,22 @@ def ape_translation(est_xyz: np.ndarray, gt_xyz: np.ndarray,
     }
 
 
+def keyframe_drift(est_xyz: np.ndarray, gt_xyz: np.ndarray) -> Dict[str, float]:
+    """The loop bench's accuracy metrics (bench.py:334-346) of a keyframe
+    trajectory: the ATE rmse, and the end drift, the last keyframe's error
+    with the gauge fixed on the first quarter of the keyframes (at least
+    4), where drift is still negligible. A global alignment would mostly
+    measure the unobservable gauge; this measures the accumulated drift
+    that loop closing is meant to remove.
+
+    est_xyz, gt_xyz: [K, 3] associated keyframe positions (metres)."""
+    q = max(4, len(gt_xyz) // 4)
+    _, R, t = umeyama_alignment(est_xyz[:q], gt_xyz[:q])
+    end = est_xyz[-1] @ R.T + t
+    return {"ate_rmse_m": ape_translation(est_xyz, gt_xyz)["rmse"],
+            "end_drift_m": float(np.linalg.norm(end - gt_xyz[-1]))}
+
+
 def associate_by_timestamp(ts_a: np.ndarray, ts_b: np.ndarray,
                            max_diff: float = 0.02):
     """Greedy nearest-timestamp association. Returns (idx_a, idx_b)."""
