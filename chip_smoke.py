@@ -51,8 +51,8 @@ the first steady keyframe; an init frame's branch runs eagerly, and with
 a mesh every keyframe's). Their launch checks count what the statuses
 imply plus the launches of each graph's warm-up
 (graphs.WARMUP_LAUNCHES: one eager run before the capture), and the
-tracking graphs' replays must equal the tracked frames (graphs.REPLAYS),
-the keyframe graphs' the steady keyframes (graphs.KF_REPLAYS;
+tracking graphs' replays must equal the tracked frames, the keyframe
+graphs' the steady keyframes (the recorder's counters, graphs.replays();
 _check_replays). Each phase closes its Systems (System.close releases
 the graphs' memory pools).
 
@@ -1066,10 +1066,11 @@ def _check_replays(tag, imp, eager=False, replays=None, kf_replays=None,
     """Every tracked frame since the counters were zeroed replayed a
     tracking graph, and every steady keyframe a keyframe graph (none on
     the eager path, and no keyframe graph where `kf_graph` is False: a
-    System with a mesh): `replays` and `kf_replays`, by default
-    graphs.REPLAYS and graphs.KF_REPLAYS."""
-    got = graphs.REPLAYS if replays is None else replays
-    kf = graphs.KF_REPLAYS if kf_replays is None else kf_replays
+    System with a mesh): `replays` and `kf_replays`, by default the
+    recorder's counters (graphs.replays())."""
+    counted = graphs.replays()
+    got = counted[0] if replays is None else replays
+    kf = counted[1] if kf_replays is None else kf_replays
     want = 0 if eager else imp["n_tracked"]
     want_kf = imp["n_steady_keyframes"] if kf_graph and not eager else 0
     if got != want or kf != want_kf:
@@ -2050,8 +2051,8 @@ def _driver_pass(tag, seq, out, dev, *flags):
     _record_statuses(sys_, log)
     _zero_launches()
     res = driver.run(sys_, args)
-    res.update(launches=_launches(), replays=graphs.REPLAYS,
-               kf_replays=graphs.KF_REPLAYS,
+    replays, kf_replays = graphs.replays()
+    res.update(launches=_launches(), replays=replays, kf_replays=kf_replays,
                warmups=dict(graphs.WARMUP_LAUNCHES), sys=sys_, **log)
     sys_.close()
     return res

@@ -342,7 +342,7 @@ def bench(dev, chunk: int, n_frames: int, loops: int, fast: bool) -> dict:
         keyframe_graphs=len(engine.kf_graphs))
 
     before = tools.launch_counts()
-    replays, kf_replays = graphs.REPLAYS, graphs.KF_REPLAYS
+    replays, kf_replays = graphs.replays()
     loop_fps, chunk_ms, kinds = [], [], collections.Counter()
     for _ in range(loops):
         sys_.reset(keep_vocab=True)
@@ -351,6 +351,7 @@ def bench(dev, chunk: int, n_frames: int, loops: int, fast: bool) -> dict:
         chunk_ms += [1e3 * t for t in times]
         kinds.update(frame_kinds(statuses))
     launches = tools.launches_since(before)
+    replays_now, kf_replays_now = graphs.replays()
     fps = float(np.median(loop_fps))
     extra = dict(
         chunk=chunk, frames=n_frames,
@@ -370,8 +371,8 @@ def bench(dev, chunk: int, n_frames: int, loops: int, fast: bool) -> dict:
         device=device_name(dev),
         path=dict(tracking=engine.tracking_path,
                   keyframe=engine.keyframe_path,
-                  tracking_replays=graphs.REPLAYS - replays,
-                  keyframe_replays=graphs.KF_REPLAYS - kf_replays,
+                  tracking_replays=replays_now - replays,
+                  keyframe_replays=kf_replays_now - kf_replays,
                   **{k: kinds[k] for k in ("init_attempts", "tracked",
                                            "steady_keyframes",
                                            "relocalized", "lost")}),

@@ -13,8 +13,11 @@ the host clock to the end of its device work, and once under
 `utils/profiling.trace`,
 which writes a chrome trace to `--out`. `profiling.trace_summary` reads
 the trace back: the top device ops by total time (the 10 longest), the
-kernel launches by name (a frame's), and the union of the kernel and copy
-intervals (device ms).
+kernel launches by name (a frame's), the union of the kernel and copy
+intervals (device ms), and the 10 longest idle gaps of the device, each
+named by the port's span that covered it (`engine.frame`,
+`engine.read`, ...: under `trace` the recorder's spans are ranges of the
+trace).
 
 The profiler stretches the host span of what it traces (it records every
 launch and kernel), so the busy share is the device ms over the untraced
@@ -76,7 +79,8 @@ def _summary(path: str, untraced_ms: float, frames: int) -> dict:
                 traced_busy_share=summ["busy_share"],
                 n_kernels=summ["n_kernels"],
                 kernels_per_frame=summ["n_kernels"] / frames,
-                top_ops=summ["top_ops"], launches=summ["launches"])
+                top_ops=summ["top_ops"], idle_gaps=summ["idle_gaps"],
+                launches=summ["launches"])
 
 
 def keyframe_frame(sys_, L, R, out: str, dev) -> dict:
@@ -157,6 +161,8 @@ def main(argv=None) -> dict:
               "frame)")
         for name, cnt, ms in r["top_ops"]:
             print(f"  {ms:9.3f} ms  {cnt:6d}x  {name[:100]}")
+        print("  idle gaps: " + ", ".join(f"{ms:.3f} ms in {name}"
+                                          for name, ms in r["idle_gaps"]))
     print(f"kernel #1: {traced_k1} in the trace, {counted['lk_level']} by "
           "its counter")
     print("TRACE " + json.dumps(

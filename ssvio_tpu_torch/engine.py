@@ -34,6 +34,13 @@ driven from the host over the mesh.
 With `loop_desc` the keyframe branch also emits the loop closer's
 descriptor ladder (`loopclosing.loop_describe`) of every keyframe it
 inserts, in `FrameOut.desc` / `dval`, as the JAX engine does.
+
+Every frame is a span `engine.frame` in the recorder (`utils/profiling.py`,
+its frame id and the branch it took as its tag) around `engine.track`
+(the tracking call, the graph's copies in and out included),
+`engine.read` (the host read) and `engine.keyframe` (the keyframe call).
+While the recorder traces, a chunk also times its frames on the device
+(`ChunkTiming`).
 """
 
 from __future__ import annotations
@@ -48,6 +55,7 @@ from ssvio_tpu_torch import graphs, loopclosing
 from ssvio_tpu_torch import map as mapmod
 from ssvio_tpu_torch.ops import ba, se3
 from ssvio_tpu_torch.parallel import dist_ba
+from ssvio_tpu_torch.utils import profiling
 
 
 class EngineCarry(NamedTuple):
@@ -114,6 +122,78 @@ class _Frame(NamedTuple):
     ran_dist_ba: bool         # that BA sharded over the mesh
     desc: Optional[torch.Tensor]   # loop descriptors of a keyframe (or None)
     dval: Optional[torch.Tensor]
+
+
+class ChunkTiming:
+    """A chunk's frames timed on the device, made at dispatch while the
+    recorder traces (`profiling.tracing()`) and read at collect, once the
+    chunk's readback has landed (`record`): nothing then waits on the
+    device.
+
+    CUDA events from the recorder's pool, on the compute stream: at the
+    start of each frame, around its tracking call and its keyframe call,
+    and one after the chunk's stacks and `pack_readback`. `record` adds
+    per frame `engine.period_ms` (its start to the next frame's, or to the
+    chunk's end), `engine.track_ms` and `engine.keyframe_ms`, and per
+    chunk `ba.lm_steps_needed` (the LM steps its local BAs' loops took,
+    `Engine.ba_trips`, read in one copy) and `ba.lm_steps_run` (the steps
+    they ran: the fixed trip's LOCAL_BA_ROUNDS x LOCAL_BA_ITERS, or those
+    taken where the mesh's BA broke its loops). On the CPU no event is
+    made; the LM steps are read all the same."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.cuda = device.type == "cuda"
+        self.frames: List[list] = []   # [frame, start, track, keyframe]
+        self.trips: List[torch.Tensor] = []    # [2] int32 a BA
+        self.fixed: List[bool] = []            # that BA ran the fixed trip
+        self.end = None
+        self._trips_host: Optional[torch.Tensor] = None
+
+    def event(self):
+        """An event recorded now on the compute stream (None on the
+        CPU)."""
+        return profiling.event(self.device) if self.cuda else None
+
+    def fetch(self) -> None:
+        """Start the copy of the chunk's BA trips to the host, before its
+        readback's event is recorded."""
+        if not self.trips:
+            return
+        trips = torch.stack(self.trips)
+        if self.cuda:
+            self._trips_host = torch.empty(trips.shape, dtype=trips.dtype,
+                                           pin_memory=True)
+            self._trips_host.copy_(trips, non_blocking=True)
+        else:
+            self._trips_host = trips
+
+    def record(self) -> None:
+        """Add the chunk's device times and LM steps to the recorder and
+        give the events back to the pool; call it once the readback has
+        landed."""
+        rec = profiling.TRACE
+        used = []
+        ends = [f[1] for f in self.frames[1:]] + [self.end]
+        for (frame, start, track, kf), end in zip(self.frames, ends):
+            if start is None:
+                continue
+            rec.add("engine.period_ms", start.elapsed_time(end), frame)
+            used.append(start)
+            for name, pair in (("engine.track_ms", track),
+                               ("engine.keyframe_ms", kf)):
+                if pair is not None:
+                    rec.add(name, pair[0].elapsed_time(pair[1]), frame)
+                    used += pair
+        if self.cuda:
+            profiling.release(self.device, used + [self.end])
+        if self._trips_host is not None:
+            steps = self._trips_host[:, 1].tolist()
+            fixed = ba.LOCAL_BA_ROUNDS * ba.LOCAL_BA_ITERS
+            rec.add("ba.lm_steps_needed", float(sum(steps)))
+            rec.add("ba.lm_steps_run", float(sum(
+                fixed if f else n for n, f in zip(steps, self.fixed))))
+        self.frames, self.trips, self._trips_host = [], [], None
 
 
 class Engine:
@@ -295,7 +375,8 @@ class Engine:
 
     # ------------------------------------------------------------------
     def _step(self, carry: EngineCarry, img_l: torch.Tensor,
-              img_r: Callable[[], torch.Tensor]
+              img_r: Callable[[], torch.Tensor], frame: int = -1,
+              timing: Optional[ChunkTiming] = None
               ) -> Tuple[EngineCarry, _Frame]:
         """One engine frame (JAX `Engine._step`, engine.py:116-237): track
         on GOOD/BAD; one keyframe path for INITING and TRACKING_BAD, with
@@ -323,26 +404,52 @@ class Engine:
         a chunk `run_chunk` stacks them unread. `System.run_step` reads a
         keyframe's record in one packed copy afterwards.
 
+        The frame is a span `engine.frame` in the recorder, with `frame`
+        (its index in the System's stream) and the branch as its tag
+        ("init", "track", "track+keyframe" or "lost"); `timing` (while the
+        recorder traces) takes its device events and its BA's trip.
+
         Reference: FrontEnd::GrabSteroImage status dispatch
         (frontend.cpp:49-67), SteroInit (:430-446), Track (:79-128),
         InsertKeyFrame (:546-576) + Backend::OptimizeActiveMap
         (backend.cpp:78-245)."""
+        with profiling.TRACE.span("engine.frame", frame) as span:
+            c2, fr = self._frame(carry, img_l, img_r, frame, timing)
+            span.tag = ("init" if carry.status == fe.INITING
+                        else "lost" if carry.status == fe.LOST
+                        else "track+keyframe" if fr.keyframe else "track")
+        return c2, fr
+
+    def _frame(self, carry: EngineCarry, img_l: torch.Tensor,
+               img_r: Callable[[], torch.Tensor], frame: int,
+               timing: Optional[ChunkTiming]) -> Tuple[EngineCarry, _Frame]:
+        """`_step`'s body, its parts spans of the recorder."""
         f = self.fe
         s = self.s
         dev = f.device
         status = carry.status
         is_init = status == fe.INITING
         is_track = status in (fe.TRACKING_GOOD, fe.TRACKING_BAD)
+        rec = profiling.TRACE
+        times = None
+        if timing is not None:
+            times = [frame, timing.event(), None, None]
+            timing.frames.append(times)
 
         # ---- tracking (only for GOOD/BAD; INITING/LOST pass through). u8
         # frames (camera-native, 4x fewer bytes to upload) are promoted on
         # the device; the right eye is undistorted only where it is used
         n_inl = 0
         if is_track:
-            pyr_l, out = self._track(carry, img_l)
+            with rec.span("engine.track", frame):
+                t0 = timing.event() if timing is not None else None
+                pyr_l, out = self._track(carry, img_l)
+                if timing is not None:
+                    times[2] = (t0, timing.event())
             # the one host read of a tracked frame: the status picks the
             # branch, as the JAX step's lax.cond does on the device
-            n_inl = int(out.n_inliers)
+            with rec.span("engine.read", frame):
+                n_inl = int(out.n_inliers)
             status_t = (fe.TRACKING_GOOD if n_inl > s.tracking_good
                         else fe.TRACKING_BAD if n_inl > s.tracking_bad
                         else fe.LOST)
@@ -361,9 +468,17 @@ class Engine:
         desc = dval = img_r0 = None
         T_kf = out.T_cw
         if need_kf:
-            k = self._keyframe(img_r(), pyr_l, out, carry.m, is_init)
+            right = img_r()
+            with rec.span("engine.keyframe", frame):
+                t0 = timing.event() if timing is not None else None
+                k = self._keyframe(right, pyr_l, out, carry.m, is_init)
+                if timing is not None:
+                    times[3] = (t0, timing.event())
             # an init frame's one host read: the gate sets the status
-            keyframe = bool(k.accept) if is_init else True
+            keyframe = True
+            if is_init:
+                with rec.span("engine.read", frame):
+                    keyframe = bool(k.accept)
             feat_f, m_f, T_f, rel_f = k.feat, k.m, k.T_cw, k.rel_motion
             kf_flag, kf_slot, kf_gid = k.accept, k.kf_slot, k.kf_gid
             T_kf, img_r0 = k.T_kf, k.img_r
@@ -371,6 +486,9 @@ class Engine:
                 desc, dval = k.desc, k.dval
             if k.ba_trip is not None:
                 self.ba_trips.append(k.ba_trip)
+                if timing is not None:
+                    timing.trips.append(k.ba_trip)
+                    timing.fixed.append(self.dist is None)
             ran_ba = self.enable_backend and not is_init
 
         # ---- the post-frame state (an init reject keeps the carried one)
@@ -383,15 +501,18 @@ class Engine:
 
     # ------------------------------------------------------------------
     def run_chunk(self, carry: EngineCarry, imgs_l: torch.Tensor,
-                  imgs_r: torch.Tensor):
+                  imgs_r: torch.Tensor, frame0: int = -1,
+                  timing: Optional[ChunkTiming] = None):
         """Run the per-frame step over [K, H, W] stereo stacks (u8 or f32)
         on the device. Returns (carry, outs: FrameOut, packed: the f32
         vector of pack_readback, n_ba: local BAs run, n_dist_ba: of them,
-        sharded over the mesh)."""
+        sharded over the mesh). `frame0`: the first frame's index in the
+        System's stream, for the recorder (-1: none); `timing` takes the
+        chunk's device events, the last after pack_readback."""
         frames: List[_Frame] = []
         for k in range(imgs_l.shape[0]):
-            carry, fr = self._step(carry, imgs_l[k],
-                                   lambda k=k: imgs_r[k])
+            carry, fr = self._step(carry, imgs_l[k], lambda k=k: imgs_r[k],
+                                   frame0 + k if frame0 >= 0 else -1, timing)
             frames.append(fr)
         dev = self.fe.device
         no_desc = torch.zeros((self._desc_rows, 8), dtype=torch.int32,
@@ -415,8 +536,10 @@ class Engine:
                               for fr in frames]),
             dval=torch.stack([no_dval if fr.dval is None else fr.dval
                               for fr in frames]))
-        return (carry, outs, pack_readback(carry, outs),
-                sum(fr.ran_ba for fr in frames),
+        packed = pack_readback(carry, outs)
+        if timing is not None:
+            timing.end = timing.event()
+        return (carry, outs, packed, sum(fr.ran_ba for fr in frames),
                 sum(fr.ran_dist_ba for fr in frames))
 
 

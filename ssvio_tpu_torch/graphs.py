@@ -41,8 +41,10 @@ settings fix the LK flavour) at its first frame of that branch.
   The warm-up's launches are real and stay counted; `warmup_launches`
   records them (the module's `WARMUP_LAUNCHES` sums them over graphs), so
   a caller that checks the counts against a run's statuses can add them.
-  `KF_REPLAYS` counts the keyframe graphs' replays, `REPLAYS` the others'
-  (the tracking graphs' and the tools' single stages).
+  The recorder's counter `engine.keyframe_replays` (`utils/profiling.py`,
+  `KEYFRAME_REPLAYS`) counts the keyframe graphs' replays,
+  `engine.track_replays` (`TRACK_REPLAYS`) the others' (the tracking
+  graphs' and the tools' single stages); `replays()` reads both.
 - The `stats` pointer of the level kernels would be baked into the graph;
   the path passes none (the tools that pass stats run the kernels
   eagerly).
@@ -55,20 +57,22 @@ copy-out.
 """
 
 import functools
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 from torch.utils import _pytree as pytree
 
 from ssvio_tpu_torch import frontend as fe
 from ssvio_tpu_torch.ops import lk_cuda, lk_patch_cuda, lk_variants_cuda
+from ssvio_tpu_torch.utils import profiling
 
-# graph replays since the counters were last zeroed (the keyframe graphs'
-# apart), and the kernel launches of the graphs' warm-ups (real launches,
-# counted by the wrappers as well), by kernel: what a caller that checks
-# the wrappers' counters against a run's statuses reads beside them
-REPLAYS = 0
-KF_REPLAYS = 0
+# the recorder's counters of graph replays since they were last zeroed
+# (the keyframe graphs' apart), and the kernel launches of the graphs'
+# warm-ups (real launches, counted by the wrappers as well), by kernel:
+# what a caller that checks the wrappers' counters against a run's
+# statuses reads beside them
+TRACK_REPLAYS = "engine.track_replays"
+KEYFRAME_REPLAYS = "engine.keyframe_replays"
 WARMUP_LAUNCHES: Dict[str, int] = {}
 
 
@@ -89,12 +93,18 @@ def _since(before: Dict[str, int]) -> Dict[str, int]:
     return {k: v - before[k] for k, v in launch_counts().items()}
 
 
+def replays() -> Tuple[int, int]:
+    """(tracking, keyframe) graph replays since the counters were last
+    zeroed, as the recorder counted them."""
+    c = profiling.TRACE.counters
+    return int(c.get(TRACK_REPLAYS, 0)), int(c.get(KEYFRAME_REPLAYS, 0))
+
+
 def zero_counts() -> None:
-    """Set every kernel's launch counter, REPLAYS, KF_REPLAYS and
+    """Set every kernel's launch counter, both replay counters and
     WARMUP_LAUNCHES to 0."""
-    global REPLAYS, KF_REPLAYS
     _set_counts(dict.fromkeys(launch_counts(), 0))
-    REPLAYS = KF_REPLAYS = 0
+    profiling.TRACE.reset(TRACK_REPLAYS, KEYFRAME_REPLAYS)
     WARMUP_LAUNCHES.clear()
 
 
@@ -105,6 +115,8 @@ class StaticGraph:
     buffers on the CPU. A call copies its inputs into the buffers (casting
     to the buffers' dtypes) and returns clones of the outputs. Call
     `close()` to release the graph and its private memory pool."""
+
+    REPLAYS = TRACK_REPLAYS         # the recorder's counter of its replays
 
     def __init__(self, fn: Callable, *inputs):
         self._fn = fn
@@ -157,10 +169,6 @@ class StaticGraph:
             _set_counts(before)
         self._graph = graph
 
-    def _count_replay(self) -> None:
-        global REPLAYS
-        REPLAYS += 1
-
     def __call__(self, *inputs):
         leaves, spec = pytree.tree_flatten(inputs)
         if spec != self._spec:
@@ -173,7 +181,7 @@ class StaticGraph:
             self._graph.replay()
             _set_counts({k: v + self.launches[k]
                          for k, v in launch_counts().items()})
-            self._count_replay()
+            profiling.TRACE.add(self.REPLAYS)
             out = self._out
         self.calls += 1
         return pytree.tree_map_only(torch.Tensor, torch.clone, out)
@@ -204,7 +212,9 @@ class KeyframeGraph(StaticGraph):
     built from the first steady keyframe, whose inputs set the shapes. A
     call takes the branch's arguments but `is_init` (the right frame in
     any dtype, promoted to float32 by the copy) and returns its
-    KeyframeOut. Its replays count in KF_REPLAYS."""
+    KeyframeOut. Its replays count in KEYFRAME_REPLAYS."""
+
+    REPLAYS = KEYFRAME_REPLAYS
 
     def __init__(self, branch: Callable, img_r: torch.Tensor, pyr_l: fe.Pyr,
                  feat: fe.FeatState, T_cw: torch.Tensor,
@@ -212,7 +222,3 @@ class KeyframeGraph(StaticGraph):
         super().__init__(functools.partial(branch, is_init=False),
                          img_r.to(torch.float32), pyr_l, feat, T_cw,
                          rel_motion, m)
-
-    def _count_replay(self) -> None:
-        global KF_REPLAYS
-        KF_REPLAYS += 1

@@ -26,6 +26,11 @@ What differs from the JAX package, by mechanism only:
   n_hypotheses)` hands `pnp_ransac` the [n_hypotheses, 6] sample indices
   instead; the parity tests use it to give the port the samples JAX's key
   chain draws. It is None on the main path.
+
+The ingest (`process_keyframes_batch`), the deferred verifications
+(`poll`) and each candidate's verification (`loopclosing.verify`, its
+host read and any correction included) are spans of the port's recorder
+(`utils/profiling.py`).
 """
 
 from __future__ import annotations
@@ -41,6 +46,7 @@ from ssvio_tpu_torch import frontend as fe
 from ssvio_tpu_torch import map as mapmod
 from ssvio_tpu_torch.config import Settings
 from ssvio_tpu_torch.ops import bow, fast, orb, pgo, pnp, pyramid, sampling, se3
+from ssvio_tpu_torch.utils import profiling
 
 
 class LoopEvent(NamedTuple):
@@ -558,6 +564,7 @@ class LoopClosing:
                                            batch, m, active)
         return evs[-1] if evs else None
 
+    @profiling.spanned("loopclosing.poll")
     def poll(self, system) -> List[LoopEvent]:
         """Resolve the candidates deferred by process_keyframes_batch
         (defer=True), at the next chunk collect. The keyframe pose and the
@@ -601,6 +608,7 @@ class LoopClosing:
                 events.append(ev)
         return events
 
+    @profiling.spanned("loopclosing.process_keyframes_batch")
     def process_keyframes_batch(self, system, kf_gids, T_list, batch,
                                 m: mapmod.MapState, active_gids,
                                 defer: bool = False,
@@ -706,6 +714,7 @@ class LoopClosing:
         return lo, hi
 
     # ------------------------------------------------------------------
+    @profiling.spanned("loopclosing.verify")
     def _complete_loop(self, system, kf_gid: int, row: int, feat, T_cw,
                        best_row: int, best_score: float,
                        gauge_idx: int = 0) -> Optional[LoopEvent]:

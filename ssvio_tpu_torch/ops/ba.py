@@ -40,6 +40,8 @@ from ssvio_tpu_torch.ops import se3
 
 CHI2_TH = 5.991          # 95% chi-square with 2 dof (reference threshold)
 BACKEND_CHI2_TH = 5.891  # backend threshold (reference backend.cpp:172)
+# local_ba's rounds and LM steps a round: the fixed trip runs them all
+LOCAL_BA_ROUNDS, LOCAL_BA_ITERS = 5, 10
 
 
 def _solve(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -408,7 +410,7 @@ def _schur_solve(Hpp, Hll, Hpl, bp, blm, lam, pose_free, lm_free,
 
 
 def local_ba(prob: LocalBAProblem, fx, fy, cx, cy, baseline,
-             max_rounds: int = 5, iters: int = 10,
+             max_rounds: int = LOCAL_BA_ROUNDS, iters: int = LOCAL_BA_ITERS,
              target_inlier_ratio: float = 0.7, mesh=None) -> LocalBAResult:
     """Sliding-window local BA, g2o-LM semantics on dense masked tensors.
 

@@ -32,6 +32,12 @@ engine's tracking graph (`graphs.TrackGraph`), and the keyframe branch of
 every steady keyframe its keyframe graph (`graphs.KeyframeGraph`; eager
 with a mesh); `eager=True` runs both op by op instead (the counterpart of
 `jax.disable_jit`). `close()` releases the graphs' memory.
+
+`dispatch_chunk` and `collect_chunk` are spans of the port's recorder
+(`utils/profiling.py`), as are the engine's frames, numbered by their
+index in the stream; while the recorder traces, a chunk's frames are
+timed on the device at dispatch and read at collect
+(`engine.ChunkTiming`).
 """
 
 from __future__ import annotations
@@ -49,6 +55,7 @@ from ssvio_tpu_torch import map as mapmod
 from ssvio_tpu_torch.config import Settings
 from ssvio_tpu_torch.loopclosing import LoopClosing, LoopEvent
 from ssvio_tpu_torch.ops import ba, se3
+from ssvio_tpu_torch.utils import profiling
 
 
 class ChunkHandle(NamedTuple):
@@ -64,6 +71,7 @@ class ChunkHandle(NamedTuple):
     m: mapmod.MapState            # the map after the chunk (loop ingest)
     last_l: torch.Tensor          # the chunk's last images, padded, for
     last_r: torch.Tensor          # relocalization and the viewer
+    timing: Optional[eng.ChunkTiming] = None   # while tracing
 
 
 class System:
@@ -121,6 +129,7 @@ class System:
         # the left pyramid and, on frames that built it, of the right one
         self.last_stereo = None
         self.frame_id = -1
+        self._in_flight = 0         # frames dispatched, not yet collected
         # tracking health: the median tracked inlier count of the last 30
         # frames (run_step) or of the latest chunk, and the run's typical
         # health, the median of at most 512 of those (trimmed by 256); the
@@ -227,7 +236,8 @@ class System:
     def _step_frame(self, left, right, timestamp: float):
         tracked = self.status in (fe.TRACKING_GOOD, fe.TRACKING_BAD)
         carry, fr = self._engine._step(self._carry(), self._pad(left),
-                                       lambda: self._pad(right))
+                                       lambda: self._pad(right),
+                                       self.frame_id)
         self._install(carry)
         self.last_stereo = (carry.pyr_last.levels[0], fr.img_r)
         if tracked:
@@ -358,6 +368,7 @@ class System:
         return self.collect_chunk(self.dispatch_chunk(lefts, rights,
                                                       timestamps))
 
+    @profiling.spanned("system.dispatch_chunk")
     @torch.no_grad()
     def dispatch_chunk(self, lefts, rights, timestamps=None) -> ChunkHandle:
         """Run one chunk on the device and start the copy of its packed
@@ -380,8 +391,12 @@ class System:
         imgs_l = self._device_stack(lefts)
         imgs_r = self._device_stack(rights)
         gauge_idx = len(self._gauge_events)
+        timing = (eng.ChunkTiming(self.device) if profiling.tracing()
+                  else None)
         carry, outs, packed, n_ba, n_dist = self._engine.run_chunk(
-            self._carry(), imgs_l, imgs_r)
+            self._carry(), imgs_l, imgs_r,
+            self.frame_id + 1 + self._in_flight, timing)
+        self._in_flight += K
         self._install(carry)
         # the chunk's last pair: relocalization reads it at collect, after
         # the caller may have reused its stack, so loop closing keeps a copy;
@@ -389,6 +404,8 @@ class System:
         last_l, last_r = imgs_l[K - 1], imgs_r[K - 1]
         if self.loopclosing is not None:
             last_l, last_r = last_l.clone(), last_r.clone()
+        if timing is not None:
+            timing.fetch()
         ready = None
         if packed.is_cuda:
             host = torch.empty(packed.shape, dtype=packed.dtype,
@@ -398,8 +415,10 @@ class System:
             ready.record(torch.cuda.current_stream(self.device))
             packed = host
         return ChunkHandle(packed, ready, outs, list(timestamps), K, n_ba,
-                           n_dist, gauge_idx, carry.m, last_l, last_r)
+                           n_dist, gauge_idx, carry.m, last_l, last_r,
+                           timing)
 
+    @profiling.spanned("system.collect_chunk")
     @torch.no_grad()
     def collect_chunk(self, handle: ChunkHandle) -> np.ndarray:
         """Wait for a dispatched chunk's readback and record its frames
@@ -411,8 +430,11 @@ class System:
         frame. Returns T_wc [K, 3, 4]."""
         if handle.ready is not None:
             handle.ready.synchronize()
+        if handle.timing is not None:
+            handle.timing.record()
         packed = handle.packed.numpy()
         K = handle.n_frames
+        self._in_flight = max(0, self._in_flight - K)
         P = eng.PER_FRAME_PACK
         per = packed[:K * P].reshape(K, P)
         T_cw_k = per[:, :12].reshape(K, 3, 4).copy()

@@ -1,28 +1,46 @@
-"""Per-stage timers and counters, torch.profiler trace capture and its
-summary (port of `ssvio_tpu/utils/profiling.py`, and of the timing helpers
-the JAX package's scripts/profile_*.py each carry).
+"""The port's recorder, torch.profiler trace capture and its summary
+(port of `ssvio_tpu/utils/profiling.py`, and of the timing helpers the JAX
+package's scripts/profile_*.py each carry).
 
-`StageTimer` accumulates named wall-clock stages (synchronised with the
-device when asked), monotonic counters and their rates; `summary()` has
-the JAX package's keys. `trace(log_dir)` captures CPU and CUDA activity
-with torch.profiler and writes a chrome trace (Perfetto, chrome://tracing)
-into log_dir; it takes the place of the JAX package's `xla_trace`.
-`trace_summary` reads such a trace back: the top device ops, the kernel
-launches by name and the device's busy share. `timeit` is the median time
-of a call.
+`TRACE`, the process's one `StageTimer`, is what the port records into:
+host spans (`TRACE.span(name, frame)`: start, end, the frame's index in
+the System's stream, the enclosing span) and counters (`TRACE.add`),
+always, at about a microsecond each, on `time.perf_counter_ns`. Each name
+keeps its last `KEEP` records in a ring; `summary()` has the JAX
+package's keys. While `tracing()` (after `enable()`, while a `trace()`
+captures, or while any torch profiler runs) the engine also times its
+frames on the device with CUDA events from a pool (`event`, `release`)
+and reads its local BAs' LM steps. While `trace()` captures, every span is
+besides a `record_function` range, so the chrome trace shows the spans
+over the kernels they launched. A profiler the port did not start gets no
+range from it: such a range's mirror on the device's timeline would read
+as device work.
+
+`trace(log_dir)` captures CPU and CUDA activity with torch.profiler and
+writes a chrome trace (Perfetto, chrome://tracing) into log_dir; it takes
+the place of the JAX package's `xla_trace`. `trace_summary` reads such a
+trace back: the top device ops, the kernel launches by name, the device's
+busy share and its idle gaps, each named by the span that covered it.
+`timeit` is the median time of a call.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
+import itertools
 import json
 import os
 import statistics
+import threading
 import time
-from collections import defaultdict
-from typing import Callable, Dict, List, Optional
+from collections import defaultdict, deque
+from typing import Callable, Dict, Iterable, List, NamedTuple, Optional
 
 import torch
+
+CLOCK = time.perf_counter_ns
+KEEP = 16384                # records kept a name
 
 
 def _synchronize(value) -> None:
@@ -39,38 +57,141 @@ def _synchronize(value) -> None:
             _synchronize(v)
 
 
+class Span(NamedTuple):
+    """A closed span, on CLOCK (ns). `frame`: the frame's index in the
+    System's stream (-1: none); `parent`: the `id` of the span open around
+    it on its thread (-1: none); `tag`: what its code set on it
+    (engine.frame: the branch the frame took)."""
+    name: str
+    t0: int
+    t1: int
+    frame: int
+    parent: int
+    id: int
+    tag: str
+
+
+class Count(NamedTuple):
+    """A counter's record: when (CLOCK, ns), by how much, for which frame
+    (-1: none)."""
+    name: str
+    t: int
+    value: float
+    frame: int
+
+
+class _Open:
+    """A span being recorded; its code may set `tag` before it closes."""
+    __slots__ = ("rec", "name", "frame", "tag", "t0", "id", "parent", "rf")
+
+    def __init__(self, rec: "StageTimer", name: str, frame: int, tag: str):
+        self.rec, self.name, self.frame, self.tag = rec, name, frame, tag
+
+    def __enter__(self) -> "_Open":
+        rec = self.rec
+        stack = rec._stack()
+        self.parent = stack[-1] if stack else -1
+        self.id = next(rec._ids)
+        stack.append(self.id)
+        self.rf = None
+        if rec.annotate:
+            self.rf = torch.autograd.profiler.record_function(self.name)
+            self.rf.__enter__()
+        self.t0 = CLOCK()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        t1 = CLOCK()
+        rec = self.rec
+        if self.rf is not None:
+            self.rf.__exit__(*exc)
+        rec._stack().pop()
+        rec.total_s[self.name] += (t1 - self.t0) * 1e-9
+        rec.count[self.name] += 1
+        rec._put(rec._spans, self.name, Span(self.name, self.t0, t1,
+                                             self.frame, self.parent,
+                                             self.id, self.tag))
+        return False
+
+
 class StageTimer:
-    """Accumulating named wall-clock timers.
+    """Named host spans and counters: each name's last `keep` records in a
+    ring, and its totals since construction or `reset`.
 
-    with timers.stage("track"):   # accumulate into 'track'
+    with timers.span("engine.frame", frame=7) as sp:   # or .stage(name)
         ...
-    Device work is asynchronous: pass `sync=result` to wait for the CUDA
-    device of that tensor (or tuple of tensors) before the clock stops, so
-    the stage is charged its device time."""
+        sp.tag = "track"
+    timers.add("engine.track_replays")
 
-    def __init__(self):
+    Spans nest per thread: a span's `parent` is the one open around it on
+    its thread. The clock is the host's and never waits for the device:
+    the engine's CUDA events time the device."""
+
+    def __init__(self, keep: int = KEEP):
+        self.keep = keep
         self.total_s: Dict[str, float] = defaultdict(float)
         self.count: Dict[str, int] = defaultdict(int)
         self.counters: Dict[str, float] = defaultdict(float)
-        self._t0 = time.time()
+        self._spans: Dict[str, deque] = {}
+        self._counts: Dict[str, deque] = {}
+        self._local = threading.local()
+        self._ids = itertools.count()
+        self.annotate = False       # trace() captures: ranges as well
+        self._t0 = CLOCK()
 
-    @contextlib.contextmanager
-    def stage(self, name: str, sync=None):
-        t0 = time.time()
+    def _stack(self) -> List[int]:
         try:
-            yield
-        finally:
-            if sync is not None:
-                _synchronize(sync)
-            self.total_s[name] += time.time() - t0
-            self.count[name] += 1
+            return self._local.stack
+        except AttributeError:
+            self._local.stack = []
+            return self._local.stack
 
-    def add(self, counter: str, value: float = 1.0):
+    def _put(self, rings: Dict[str, deque], name: str, rec) -> None:
+        ring = rings.get(name)
+        if ring is None:
+            ring = rings[name] = deque(maxlen=self.keep)
+        ring.append(rec)
+
+    def span(self, name: str, frame: int = -1, tag: str = "") -> _Open:
+        return _Open(self, name, frame, tag)
+
+    def stage(self, name: str) -> _Open:
+        """A span `name` (the JAX package's StageTimer's word)."""
+        return _Open(self, name, -1, "")
+
+    def add(self, counter: str, value: float = 1.0, frame: int = -1):
         self.counters[counter] += value
+        self._put(self._counts, counter,
+                  Count(counter, CLOCK(), value, frame))
+
+    def spans(self, name: str, t0: Optional[int] = None,
+              t1: Optional[int] = None) -> List[Span]:
+        """The kept spans `name` that started in [t0, t1) (CLOCK ns; None
+        leaves that end open), oldest first."""
+        return [s for s in self._spans.get(name, ())
+                if (t0 is None or s.t0 >= t0) and (t1 is None or s.t0 < t1)]
+
+    def counts(self, name: str, t0: Optional[int] = None,
+               t1: Optional[int] = None) -> List[Count]:
+        """The kept records of counter `name` made in [t0, t1)."""
+        return [c for c in self._counts.get(name, ())
+                if (t0 is None or c.t >= t0) and (t1 is None or c.t < t1)]
+
+    def self_ns(self, spans: Iterable[Span],
+                children: Optional[Iterable[str]] = None) -> List[int]:
+        """Each span's duration less its children's: the kept spans whose
+        parent it is, of the names in `children` (default: every name)."""
+        names = list(self._spans) if children is None else children
+        kids: Dict[int, int] = defaultdict(int)
+        for n in names:
+            for c in self._spans.get(n, ()):
+                if c.parent >= 0:
+                    kids[c.parent] += c.t1 - c.t0
+        return [s.t1 - s.t0 - kids.get(s.id, 0) for s in spans]
 
     def rate(self, counter: str) -> float:
         """counter per wall second since construction/reset."""
-        dt = max(time.time() - self._t0, 1e-9)
+        dt = max((CLOCK() - self._t0) * 1e-9, 1e-9)
         return self.counters[counter] / dt
 
     def summary(self) -> Dict[str, dict]:
@@ -87,11 +208,62 @@ class StageTimer:
     def report(self) -> str:
         return json.dumps(self.summary(), indent=2)
 
-    def reset(self):
-        self.total_s.clear()
-        self.count.clear()
-        self.counters.clear()
-        self._t0 = time.time()
+    def reset(self, *names: str):
+        """Forget the records and totals of `names`; with none, of every
+        name, and restart the rates' clock."""
+        tables = (self.total_s, self.count, self.counters, self._spans,
+                  self._counts)
+        for d in tables:
+            for n in (names or list(d)):
+                d.pop(n, None)
+        if not names:
+            self._t0 = CLOCK()
+
+
+TRACE = StageTimer()
+_enabled = False
+
+
+def enable(on: bool = True) -> None:
+    """Turn the device timing on (or off) without a profiler."""
+    global _enabled
+    _enabled = on
+
+
+def tracing() -> bool:
+    """Whether the device timing is on: after `enable()`, while a
+    `trace()` captures, or while a torch profiler runs."""
+    return (_enabled or TRACE.annotate
+            or torch.autograd.profiler._is_profiler_enabled)
+
+
+def spanned(name: str) -> Callable:
+    """A decorator: every call of the function is a span `name` in
+    TRACE."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def inner(*args, **kwargs):
+            with _Open(TRACE, name, -1, ""):
+                return fn(*args, **kwargs)
+        return inner
+    return wrap
+
+
+_EVENTS: Dict[torch.device, list] = defaultdict(list)
+
+
+def event(device: torch.device):
+    """A timing CUDA event from the pool, recorded on `device`'s current
+    stream."""
+    pool = _EVENTS[device]
+    e = pool.pop() if pool else torch.cuda.Event(enable_timing=True)
+    e.record(torch.cuda.current_stream(device))
+    return e
+
+
+def release(device: torch.device, events: Iterable) -> None:
+    """Give events back to the pool once their times are read."""
+    _EVENTS[device].extend(e for e in events if e is not None)
 
 
 TRACE_FILE = "trace.json"
@@ -109,7 +281,8 @@ def trace(log_dir: Optional[str]):
     `log_dir/trace.json` on exit. Yields the profiler. No-op (yields None)
     when log_dir is falsy, so call sites can stay unconditional. The body,
     and the wait for the device work it queued, is annotated as
-    TRACE_WINDOW (trace_summary's window)."""
+    TRACE_WINDOW (trace_summary's window), and every TRACE span opened in
+    it is a range of its own."""
     if not log_dir:
         yield None
         return
@@ -117,11 +290,16 @@ def trace(log_dir: Optional[str]):
     if torch.cuda.is_available():
         acts.append(torch.profiler.ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
+    annotate = TRACE.annotate
     with torch.profiler.profile(activities=acts) as prof:
         with torch.profiler.record_function(TRACE_WINDOW):
-            yield prof
-            if torch.cuda.is_available():
-                torch.cuda.synchronize()
+            TRACE.annotate = True
+            try:
+                yield prof
+                if torch.cuda.is_available():
+                    torch.cuda.synchronize()
+            finally:
+                TRACE.annotate = annotate
     prof.export_chrome_trace(os.path.join(log_dir, TRACE_FILE))
 
 
@@ -136,6 +314,18 @@ def _union_us(intervals: List[tuple]) -> float:
             total += b - end
             end = b
     return total
+
+
+def _gaps_us(intervals: List[tuple], t0: float, t1: float) -> List[tuple]:
+    """The stretches of [t0, t1] that no interval covers."""
+    out, cur = [], t0
+    for a, b in sorted(intervals):
+        if a > cur:
+            out.append((cur, a))
+        cur = max(cur, b)
+    if cur < t1:
+        out.append((cur, t1))
+    return out
 
 
 def trace_summary(path: str, top: int = 10) -> dict:
@@ -153,7 +343,11 @@ def trace_summary(path: str, top: int = 10) -> dict:
       device_ms: the union of the device events' intervals, clipped to the
         window (kernels on several streams and side-stream copies overlap:
         a union, not a sum);
-      busy_share: device_ms / window_ms."""
+      busy_share: device_ms / window_ms;
+      idle_gaps: the `top` longest stretches of the window with no device
+        event, [(name, ms)], longest first, each named by the innermost
+        host annotation (a TRACE span under `trace`) that covers its
+        midpoint, None where only the window does."""
     with open(path) as f:
         events = [e for e in json.load(f)["traceEvents"]
                   if e.get("ph") == "X" and "dur" in e]
@@ -181,11 +375,23 @@ def trace_summary(path: str, top: int = 10) -> dict:
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]
     window_ms = (t1 - t0) / 1e3
     device_ms = _union_us(spans) / 1e3
+    notes = [(float(e["ts"]), float(e["ts"]) + float(e["dur"]), e["name"])
+             for e in events
+             if e.get("cat", "").lower() == "user_annotation"
+             and e.get("name") != TRACE_WINDOW]
+    gaps = []
+    for a, b in _gaps_us(spans, t0, t1):
+        mid = 0.5 * (a + b)
+        inside = [(n1 - n0, name) for n0, n1, name in notes
+                  if n0 <= mid < n1]
+        gaps.append((min(inside)[1] if inside else None, (b - a) / 1e3))
+    gaps.sort(key=lambda g: -g[1])
     return dict(window_ms=window_ms,
                 top_ops=[(name, n, ms) for name, (n, ms) in ranked],
                 launches=dict(launches), n_kernels=sum(launches.values()),
                 device_ms=device_ms,
-                busy_share=device_ms / window_ms if window_ms > 0 else 0.0)
+                busy_share=device_ms / window_ms if window_ms > 0 else 0.0,
+                idle_gaps=gaps[:top])
 
 
 def timeit(fn: Callable, n: int = 20, warmup: int = 1,
@@ -214,4 +420,3 @@ def timeit(fn: Callable, n: int = 20, warmup: int = 1,
             _synchronize(fn())
             times.append(1e3 * (time.perf_counter() - t0))
     return float(statistics.median(times))
-

@@ -146,7 +146,7 @@ def test_stage_timer_matches_jax_keys():
     timers = [profiling.StageTimer(), profiling_j.StageTimer()]
     for t in timers:
         for _ in range(2):
-            with t.stage("work", sync=None):
+            with t.stage("work"):
                 time.sleep(0.01)
         t.add("frames", 5)
     a, b = (t.summary() for t in timers)
@@ -156,11 +156,15 @@ def test_stage_timer_matches_jax_keys():
     assert a["work"]["calls"] == 2 and a["work"]["total_s"] >= 0.02
     assert a["counter/frames"]["value"] == 5
     assert "work" in timers[0].report()
-    with timers[0].stage("sync", sync=(torch.ones(3), {"x": torch.zeros(1)})):
-        pass
-    assert timers[0].count["sync"] == 1
+    # the port's recorder keeps each span, its frame and the span around it
+    with timers[0].span("outer", frame=3) as outer:
+        with timers[0].stage("inner"):
+            pass
+    (inner,) = timers[0].spans("inner")
+    assert inner.parent == outer.id and timers[0].spans("outer")[0].frame == 3
+    assert timers[0].count["inner"] == 1
     timers[0].reset()
-    assert not timers[0].total_s
+    assert not timers[0].total_s and not timers[0].spans("inner")
 
 
 def test_trace_is_a_no_op_without_a_dir_and_writes_one(tmp_path):

@@ -37,6 +37,7 @@ from ssvio_tpu_torch.ops import (_nvcc, bow, lk, lk_cuda, lk_patch_cuda, orb,
                                  pyramid, sampling)
 from ssvio_tpu_torch.ops import lk_variants_cuda as lkv
 from ssvio_tpu_torch.system import System
+from ssvio_tpu_torch.utils import profiling
 
 pytestmark = pytest.mark.gpu
 
@@ -340,6 +341,51 @@ def test_chunk_path_on_gpu_matches_run_step():
     np.testing.assert_allclose(tb[:, :, 3], ta[:, :, 3], atol=1e-3)
 
 
+def test_chunk_device_timing_on_gpu():
+    """With the recorder's device timing on, pipelined chunks time their
+    frames by CUDA events and read them at collect: a period for every
+    frame, a tracking time for every tracked frame and a keyframe time for
+    every frame that ran the keyframe branch, both inside the frame's
+    period (one stream: the events are in order); the LM steps read match
+    Engine.ba_trips, and the events go back to the pool."""
+    dev = _device()
+    s, L, R = _small_sequence(dev)
+    sys_ = System(s, enable_backend=True, device=dev)
+    t0 = profiling.CLOCK()
+    profiling.enable()
+    try:
+        prev = None
+        for k in range(0, 24, 6):
+            h = sys_.dispatch_chunk(L[k:k + 6], R[k:k + 6])
+            assert h.timing is not None
+            if prev is not None:
+                sys_.collect_chunk(prev)
+            prev = h
+        sys_.collect_chunk(prev)
+    finally:
+        profiling.enable(False)
+    tr = profiling.TRACE
+
+    def by_frame(name):
+        return {c.frame: c.value for c in tr.counts(name, t0)}
+
+    period, track, kf = (by_frame(n) for n in (
+        "engine.period_ms", "engine.track_ms", "engine.keyframe_ms"))
+    frames = tr.spans("engine.frame", t0)
+    assert sorted(period) == [f.frame for f in frames] == list(range(24))
+    for f in frames:
+        n = f.frame
+        assert (n in track) == (f.tag in ("track", "track+keyframe")), f
+        assert (n in kf) == (f.tag in ("init", "track+keyframe")), f
+        assert 0 < track.get(n, 0) + kf.get(n, 0) <= period[n] + 1e-3, f
+    assert any(f.tag == "track+keyframe" for f in frames)
+    trips = torch.stack(list(sys_._engine.ba_trips)).cpu()
+    needed = sum(c.value for c in tr.counts("ba.lm_steps_needed", t0))
+    assert needed == int(trips[:, 1].sum()) and len(trips) >= 1
+    assert len(profiling._EVENTS[dev]) >= 5
+    sys_.close()
+
+
 GRAPH_VS_EAGER_M = 1e-5   # the same kernels in the same order on one stream
 
 
@@ -417,8 +463,8 @@ def test_tracking_graph_replays_like_eager_on_gpu(monkeypatch):
     assert graph.calls == n_tracked > 10
     (kf_graph,) = b._engine.kf_graphs.values()
     n_steady = n_stereo - sum(x == fe.INITING for x in before)
-    assert kf_graph.calls == graphs.KF_REPLAYS == n_steady >= 1
-    assert graphs.REPLAYS == n_tracked
+    assert kf_graph.calls == graphs.replays()[1] == n_steady >= 1
+    assert graphs.replays()[0] == n_tracked
     levels = s.lk_levels
     assert lk_cuda.LAUNCHES == (2 * levels * n_tracked
                                 + 2 * (levels + 1) * n_stereo
@@ -459,7 +505,7 @@ def test_keyframe_graph_capture_on_gpu():
             torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
     assert lk_cuda.LAUNCHES - n0 == 3 * 2 * (s.lk_levels + 1)
-    assert graphs.KF_REPLAYS == 2 and graphs.REPLAYS == 0
+    assert graphs.replays()[1] == 2 and graphs.replays()[0] == 0
     lg, lr = (torch.utils._pytree.tree_leaves(r) for r in (got, ref))
     assert [x is None for x in lg] == [x is None for x in lr]
     for a, b in zip(lg, lr):

@@ -260,6 +260,11 @@ def test_trace_tool(tiny, tmp_path):
     assert r["busy_share"] == r["traced_busy_share"] == 0.0  # no device
     assert r["trace_kernel1"] == r["counter_launches"]["lk_level"] == 0
     assert {"top_ops", "kernels_per_frame", "launches"} <= set(r)
+    # no device: one idle gap, the whole window, inside the chunk's spans
+    (gap,) = r["idle_gaps"]
+    assert gap[1] == pytest.approx(r["window_ms"])
+    assert gap[0] is not None and gap[0].split(".")[0] in ("system",
+                                                           "engine")
     kf = r["keyframe_frame"]
     assert os.path.exists(tmp_path / "keyframe" / profiling.TRACE_FILE)
     assert kf["untraced_ms"] > 0 and kf["busy_share"] == 0.0
