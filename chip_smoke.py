@@ -46,7 +46,8 @@ one CUDA graph of the pyramid, the LK kernels and the pose-only LM,
 captured at the System's first tracked frame), and the keyframe branch
 of every steady keyframe its keyframe graph (graphs.KeyframeGraph, one
 CUDA graph of the right pyramid, detection, stereo LK, triangulation, the
-map inserts, the loop descriptors and the 5 x 10 local BA, captured at
+map inserts, the loop descriptors and the 5 x 10 local BA, whose rounds
+after the inlier-ratio flag its conditional nodes skip, captured at
 the first steady keyframe; an init frame's branch runs eagerly, and with
 a mesh every keyframe's). Their launch checks count what the statuses
 imply plus the launches of each graph's warm-up
@@ -66,7 +67,7 @@ the graphs' memory pools).
    Prints the median and mean ms a frame, the steady keyframe frames'
    median and the first one's (it builds the keyframe graph), and the
    rounds and LM steps each local BA's loops take (Engine.ba_trips; the
-   fixed trip runs 5 x 10).
+   keyframe graph runs those rounds, 10 steps each, an eager BA 5 x 10).
 5. the chunk path: the RobotCar configuration runs 96 frames of a straight
    drive down a street (SCENES; rendered on the card, handed over as host
    uint8 as a camera's are) in chunks of 32
@@ -89,7 +90,8 @@ the graphs' memory pools).
    Then on the last tracked frame of the first graph run, eager and
    replayed from a graph of it, with CUDA-event ms of each: the pose-only
    LM (4 x 10 iterations, a fixed trip) and the local BA of the window
-   (5 x 10, a fixed trip); beside ms/frame of every run and its steady
+   (5 x 10, a fixed trip, whose graph skips the rounds after the ratio
+   flag); beside ms/frame of every run and its steady
    keyframe frames' median ms.
 6. the flavours: phase 4's frames through run_step once for each of sw,
    ymm, pkmm, mm and mm_f32 (bench configuration with lk_kernel set). Same
@@ -1283,7 +1285,8 @@ def _lm_ms(sys_) -> dict:
 
 def _ba_ms(sys_) -> dict:
     """The local BA (5 x 10, a fixed trip) on the System's window, eager
-    and replayed from a CUDA graph of it (graphs.StaticGraph), CUDA-event
+    and replayed from a CUDA graph of it (graphs.StaticGraph, which skips
+    the rounds after the inlier-ratio flag), CUDA-event
     ms a call; the two must agree (poses and landmarks within
     GRAPH_VS_EAGER_M, equal edges)."""
     f = sys_.frontend

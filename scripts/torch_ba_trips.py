@@ -5,7 +5,7 @@ sequence, against the steps their fixed trip runs.
 `ops/ba.py::local_ba` runs JAX's two `while_loop`s (rounds until the
 inlier ratio passes 0.7, LM steps until the step stalls) as a fixed trip
 of 5 rounds x 10 steps, the state frozen after each stop, so that a CUDA
-graph holds it. Each result counts the rounds and steps the loops would
+graph holds it (whose replay skips the rounds after the ratio flag). Each result counts the rounds and steps the loops would
 have run (`LocalBAResult.rounds` / `.iterations`; the engine logs them in
 `Engine.ba_trips`). This tool renders phase 4's sequence (bench_settings():
 1241x376, 512 features, 8192 landmarks, window 16; world seed 4, 0.6 m a

@@ -13,7 +13,8 @@ engine runs them by default: `Frontend.track_frame` (undistortion,
 pyramid, `_track_step`) replayed from its CUDA graph (graphs.TrackGraph)
 and the keyframe branch of a steady keyframe frame
 (`Engine.keyframe_branch`: the right pyramid, `_keyframe_core`, the
-5 x 10 local BA) eagerly and replayed from its graph
+5 x 10 local BA, whose graph skips the rounds after the inlier-ratio
+flag) eagerly and replayed from its graph
 (graphs.KeyframeGraph), and `pose_only_optimize` and `local_ba` replayed
 from graphs of their own (graphs.StaticGraph; on the CPU every graph runs
 uncaptured): the median of `--reps` calls (local BA and the keyframe

@@ -21,7 +21,8 @@ graph with no host read inside (`graphs.py`): the tracking branch
 (`do_track`: pyramid, seeded LK, pose-only LM; `graphs.TrackGraph`) is
 replayed every tracked frame, and the keyframe branch of a steady keyframe
 (`do_kf`: detection, stereo LK, triangulation, the map inserts, the loop
-descriptors, local BA as a fixed trip; `Engine.keyframe_branch` in a
+descriptors, local BA as a fixed trip whose rounds after the inlier-ratio
+flag the graph skips on the device; `Engine.keyframe_branch` in a
 `graphs.KeyframeGraph`) every steady keyframe. Each is built at its first
 frame. What stays on the host is the branch choice, as `lax.cond`'s
 predicate: one read of the inlier count a tracked frame, and one read of
@@ -124,6 +125,28 @@ class _Frame(NamedTuple):
     dval: Optional[torch.Tensor]
 
 
+# how a steady keyframe's local BA runs: replayed in the keyframe graph,
+# whose conditional nodes skip the rounds after the ratio flag; op by op
+# as the fixed trip, every round and step run (eagerly, and uncaptured on
+# the CPU); or over the mesh, its loops broken on flags the host reads
+BA_MODES = ("graph", "fixed trip", "mesh")
+
+
+def ba_work(mode: str, rounds: int, steps: int) -> Tuple[int, int]:
+    """(LM steps run, rounds skipped) of a local BA that ran in `mode`
+    (BA_MODES) and whose loops took `rounds` rounds and `steps` LM
+    steps: a graph runs each of its rounds whole, a fixed trip all
+    LOCAL_BA_ROUNDS, a mesh BA its steps."""
+    skipped = ba.LOCAL_BA_ROUNDS - rounds
+    if mode == "graph":
+        return rounds * ba.LOCAL_BA_ITERS, skipped
+    if mode == "fixed trip":
+        return ba.LOCAL_BA_ROUNDS * ba.LOCAL_BA_ITERS, 0
+    if mode == "mesh":
+        return steps, skipped
+    raise ValueError(f"a BA mode of {BA_MODES}, not {mode!r}")
+
+
 class ChunkTiming:
     """A chunk's frames timed on the device, made at dispatch while the
     recorder traces (`profiling.tracing()`) and read at collect, once the
@@ -136,17 +159,17 @@ class ChunkTiming:
     per frame `engine.period_ms` (its start to the next frame's, or to the
     chunk's end), `engine.track_ms` and `engine.keyframe_ms`, and per
     chunk `ba.lm_steps_needed` (the LM steps its local BAs' loops took,
-    `Engine.ba_trips`, read in one copy) and `ba.lm_steps_run` (the steps
-    they ran: the fixed trip's LOCAL_BA_ROUNDS x LOCAL_BA_ITERS, or those
-    taken where the mesh's BA broke its loops). On the CPU no event is
-    made; the LM steps are read all the same."""
+    `Engine.ba_trips`, read in one copy), `ba.lm_steps_run` (the steps
+    they ran) and `ba.rounds_skipped` (the rounds of LOCAL_BA_ROUNDS they
+    did not run), by the mode each BA ran in (`BA_MODES`, `ba_work`). On
+    the CPU no event is made; the LM steps are read all the same."""
 
     def __init__(self, device: torch.device):
         self.device = device
         self.cuda = device.type == "cuda"
         self.frames: List[list] = []   # [frame, start, track, keyframe]
         self.trips: List[torch.Tensor] = []    # [2] int32 a BA
-        self.fixed: List[bool] = []            # that BA ran the fixed trip
+        self.modes: List[str] = []             # how that BA ran (BA_MODES)
         self.end = None
         self._trips_host: Optional[torch.Tensor] = None
 
@@ -188,12 +211,14 @@ class ChunkTiming:
         if self.cuda:
             profiling.release(self.device, used + [self.end])
         if self._trips_host is not None:
-            steps = self._trips_host[:, 1].tolist()
-            fixed = ba.LOCAL_BA_ROUNDS * ba.LOCAL_BA_ITERS
-            rec.add("ba.lm_steps_needed", float(sum(steps)))
-            rec.add("ba.lm_steps_run", float(sum(
-                fixed if f else n for n, f in zip(steps, self.fixed))))
-        self.frames, self.trips, self._trips_host = [], [], None
+            trips = self._trips_host.tolist()
+            work = [ba_work(mode, *trip)
+                    for trip, mode in zip(trips, self.modes, strict=True)]
+            rec.add("ba.lm_steps_needed", float(sum(n for _, n in trips)))
+            rec.add("ba.lm_steps_run", float(sum(w[0] for w in work)))
+            rec.add("ba.rounds_skipped", float(sum(w[1] for w in work)))
+        self.frames, self.trips, self.modes = [], [], []
+        self._trips_host = None
 
 
 class Engine:
@@ -216,7 +241,8 @@ class Engine:
 
     `ba_trips` logs, for the tools, the rounds and LM steps of each local
     BA the engine ran (device [2] int32, the last 1024): the steps JAX's
-    `while_loop`s take, where the fixed trip runs 5 x 10."""
+    `while_loop`s take. The keyframe graph runs those rounds, 10 steps
+    each; an eager or CPU BA runs 5 x 10 (`ba_mode`, `ba_work`)."""
 
     def __init__(self, frontend: fe.Frontend, enable_backend: bool,
                  mesh=None, loop_desc: bool = False, eager: bool = False):
@@ -365,6 +391,13 @@ class Engine:
         "eager" with a mesh."""
         return "eager" if self.dist is not None else self.tracking_path
 
+    @property
+    def ba_mode(self) -> str:
+        """How a steady keyframe's local BA runs (BA_MODES)."""
+        if self.dist is not None:
+            return "mesh"
+        return "graph" if self.keyframe_path == "graph" else "fixed trip"
+
     def close(self) -> None:
         """Release the tracking and keyframe graphs (their memory pools);
         the next frame of each branch builds a new one."""
@@ -488,7 +521,7 @@ class Engine:
                 self.ba_trips.append(k.ba_trip)
                 if timing is not None:
                     timing.trips.append(k.ba_trip)
-                    timing.fixed.append(self.dist is None)
+                    timing.modes.append(self.ba_mode)
             ran_ba = self.enable_backend and not is_init
 
         # ---- the post-frame state (an init reject keeps the carried one)

@@ -11,7 +11,9 @@ seeded forward and backward LK with the level kernels, the FB gate and the
 every tracked frame. `KeyframeGraph` captures `Engine.keyframe_branch` of
 a steady keyframe (the right pyramid, re-detection, stereo LK both ways,
 triangulation, the map inserts, the loop descriptors, the 5 x 10 local
-BA) and replays it every steady keyframe, after the frame's tracking
+BA, whose rounds after the first are conditional nodes that a replay runs
+only until the inlier ratio passes its target: `ops/ba.py::_if_live`)
+and replays it every steady keyframe, after the frame's tracking
 replay. `Engine._step` builds one of each per canvas shape (the engine's
 settings fix the LK flavour) at its first frame of that branch.
 
@@ -31,8 +33,10 @@ settings fix the LK flavour) at its first frame of that branch.
   snapshots never alias a buffer of the graph.
 - Warm-up: before the capture the function runs once on a side stream
   (cuBLAS's and cuSOLVER's handles and workspaces, the LK kernels' build
-  and first launch), then the capture runs on that stream. A failed
-  capture or replay raises; nothing gives way to the eager path.
+  and first launch), then the capture runs on that stream. Both open the
+  graph's `cuda_if.Bodies`: the body of an IF node (`cuda_if.if_node`)
+  runs on a stream of its own in the warm-up and is captured on it. A
+  failed capture or replay raises; nothing gives way to the eager path.
 - Launch counts: the kernel wrappers count in Python (`lk_cuda.LAUNCHES`,
   `lk_patch_cuda.LAUNCHES`, `lk_variants_cuda.LAUNCHES`), so a replay
   would count nothing and the capture would count launches that never
@@ -57,13 +61,15 @@ copy-out.
 """
 
 import functools
+import gc
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
 from torch.utils import _pytree as pytree
 
 from ssvio_tpu_torch import frontend as fe
-from ssvio_tpu_torch.ops import lk_cuda, lk_patch_cuda, lk_variants_cuda
+from ssvio_tpu_torch.ops import (cuda_if, lk_cuda, lk_patch_cuda,
+                                 lk_variants_cuda)
 from ssvio_tpu_torch.utils import profiling
 
 # the recorder's counters of graph replays since they were last zeroed
@@ -125,6 +131,8 @@ class StaticGraph:
                     for t in leaves]
         self.device = leaves[0].device
         self._graph: Optional[torch.cuda.CUDAGraph] = None
+        # the stream and memory of its IF nodes' bodies
+        self._bodies: Optional[cuda_if.Bodies] = None
         self._out = None
         self.launches: Dict[str, int] = dict.fromkeys(launch_counts(), 0)
         self.warmup_launches: Dict[str, int] = dict(self.launches)
@@ -147,7 +155,8 @@ class StaticGraph:
         dev = self.device
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
+        bodies = cuda_if.Bodies(dev)
+        with torch.cuda.stream(side), cuda_if.bodies_of(bodies):
             self._load(leaves)
             before = launch_counts()
             self._run()
@@ -157,17 +166,25 @@ class StaticGraph:
         torch.cuda.current_stream(dev).wait_stream(side)
         graph = torch.cuda.CUDAGraph()
         before = launch_counts()
+        # no garbage collection inside the capture: one that frees another
+        # graph, or gives back its bodies' pool, makes a call the capture
+        # forbids, and the capture fails
+        collecting = gc.isenabled()
+        gc.disable()
         try:
             # thread_local: the chunk prefetcher's thread may upload (pinned
             # buffers, copies on its own stream) while this one captures
-            with torch.cuda.graph(graph, stream=side,
-                                  capture_error_mode="thread_local"):
+            with cuda_if.bodies_of(bodies), \
+                    torch.cuda.graph(graph, stream=side,
+                                     capture_error_mode="thread_local"):
                 self._out = self._run()
         finally:
+            if collecting:
+                gc.enable()
             # the wrappers counted launches that only the replays make
             self.launches = _since(before)
             _set_counts(before)
-        self._graph = graph
+        self._graph, self._bodies = graph, bodies
 
     def __call__(self, *inputs):
         leaves, spec = pytree.tree_flatten(inputs)
@@ -187,8 +204,12 @@ class StaticGraph:
         return pytree.tree_map_only(torch.Tensor, torch.clone, out)
 
     def close(self) -> None:
-        """Drop the graph, its outputs and its buffers."""
+        """Drop the graph, its outputs and its buffers, and the memory of
+        its IF nodes' bodies."""
         self._graph = self._out = self._in = None
+        if self._bodies is not None:
+            self._bodies.close()
+            self._bodies = None
 
 
 class TrackGraph(StaticGraph):

@@ -14,10 +14,15 @@ flag is set, with no host read, so the tracking and keyframe steps are
 captured into CUDA graphs (`graphs.py`): the pose-only LM takes `iters`
 steps a round, `local_ba` `iters` steps in each of `max_rounds` rounds
 (5 x 10 = 50 LM steps, where JAX's loops may stop sooner; each result
-counts the rounds and steps the loops would have run). Solves use
-`torch.linalg.solve_ex`, which returns inf/nan on a singular system instead
-of raising, as `jnp.linalg.solve` does; the finiteness test then rejects
-the step.
+counts the rounds and steps the loops would have run). In a captured
+graph each round of `local_ba` after the first is a CUDA conditional node
+on the ratio flag (`_if_live`): a replay runs the rounds up to the flag,
+each with all its `iters` steps, and skips the rest on the device; run
+op by op, the fixed trip runs them all. Solves use
+`torch.linalg.solve_ex` (the BA's Schur system its LU factors and two
+triangular solves, `_solve_lu`: the same bits), which returns inf/nan on
+a singular system instead of raising, as `jnp.linalg.solve` does; the
+finiteness test then rejects the step.
 
 `local_ba(..., mesh=...)` is the JAX package's `axis_name` form: the
 problem's landmark axis is this rank's shard (`parallel/dist_ba.py`), and
@@ -31,21 +36,35 @@ iteration.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
 import torch.distributed as dist
 
-from ssvio_tpu_torch.ops import se3
+from ssvio_tpu_torch.ops import cuda_if, se3
 
 CHI2_TH = 5.991          # 95% chi-square with 2 dof (reference threshold)
 BACKEND_CHI2_TH = 5.891  # backend threshold (reference backend.cpp:172)
-# local_ba's rounds and LM steps a round: the fixed trip runs them all
+# local_ba's rounds and LM steps a round: op by op the fixed trip runs
+# them all, a captured graph the rounds up to the ratio flag
 LOCAL_BA_ROUNDS, LOCAL_BA_ITERS = 5, 10
 
 
 def _solve(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.linalg.solve_ex(A, b)[0]
+
+
+def _solve_lu(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """`_solve` of one [n, n] system as its LU factors, the row swaps and
+    two triangular solves: what solve_ex runs on the card (cuSOLVER's
+    getrf and getrs), which gives the same bits, but with cuBLAS's
+    triangular solves in place of getrs, which allocates memory inside a
+    CUDA graph's conditional body (`_if_live`), where that is refused."""
+    LU, piv, _ = torch.linalg.lu_factor_ex(A)
+    perm = torch.lu_unpack(LU, piv, unpack_data=False)[0].argmax(dim=0)
+    y = torch.linalg.solve_triangular(LU, b.index_select(0, perm)[:, None],
+                                      upper=False, unitriangular=True)
+    return torch.linalg.solve_triangular(LU, y, upper=True)[:, 0]
 
 
 def _all_reduce(mesh, op, *ts):
@@ -263,7 +282,7 @@ class LocalBAResult(NamedTuple):
     chi2: torch.Tensor         # [M, W, C] final per-edge chi2
     inlier_ratio: torch.Tensor # [] float32
     # [] int32: the rounds and LM steps JAX's while_loops run (the fixed
-    # trip runs them all and freezes the state after the stop)
+    # trip freezes the state after the stop)
     rounds: Optional[torch.Tensor] = None
     iterations: Optional[torch.Tensor] = None
 
@@ -401,12 +420,26 @@ def _schur_solve(Hpp, Hll, Hpl, bp, blm, lam, pose_free, lm_free,
     Sd = Sd * (free[:, None] * free[None, :]) \
         + torch.diag(torch.where(free > 0, 0.0, 1.0).to(dt))
     rhs = bs.reshape(-1) * free
-    dxp = _solve(Sd + 1e-6 * torch.eye(W * 6, dtype=dt, device=dev),
-                 rhs).reshape(W, 6) * pose_free[:, None]
+    dxp = _solve_lu(Sd + 1e-6 * torch.eye(W * 6, dtype=dt, device=dev),
+                    rhs).reshape(W, 6) * pose_free[:, None]
 
     rhs_l = blm - torch.einsum("wabm,wa->bm", Hpl, dxp)        # [3,M]
     dxl = torch.einsum("cbm,bm->cm", Hll_inv, rhs_l) * lm_free[None, :]
     return dxp, dxl.T
+
+
+def _if_live(live: torch.Tensor, body: Callable[[], None]) -> None:
+    """Run `body`, a round of local_ba's fixed trip that writes its results
+    into tensors made before it. Inside a graph's capture the body is
+    captured into a conditional node on `live` ([] bool on the device,
+    `cuda_if.if_node`), which a replay runs only while `live` is set.
+    Elsewhere (the CPU, eagerly, a graph's warm-up) the body always runs,
+    and its `torch.where` selects on `live` leave the state as it was:
+    both leave the same state bit for bit."""
+    if cuda_if.is_open(live.device):
+        cuda_if.if_node(live, body)
+    else:
+        body()
 
 
 def local_ba(prob: LocalBAProblem, fx, fy, cx, cy, baseline,
@@ -423,7 +456,10 @@ def local_ba(prob: LocalBAProblem, fx, fy, cx, cy, baseline,
     step whose stop flag is set leaves T, lp, lam, nu and the blocks as
     they were, and a round after the ratio flag leaves the poses, the
     landmarks and the inlier edges, which is the state JAX's two
-    `while_loop`s leave (ssvio_tpu/ops/ba.py:516, :546).
+    `while_loop`s leave (ssvio_tpu/ops/ba.py:516, :546). Op by op every
+    round runs; captured into a CUDA graph, the rounds after the first
+    are conditional nodes on the ratio flag, and a replay skips those
+    after it (`_if_live`), to the same state bit for bit.
 
     `mesh` (`parallel.dist_ba.Mesh`): `prob`'s landmark fields are this
     rank's shard and every rank of the mesh calls local_ba together. The
@@ -438,16 +474,15 @@ def local_ba(prob: LocalBAProblem, fx, fy, cx, cy, baseline,
     lm_has_obs = torch.any(prob.obs_valid.flatten(1), dim=1)
     lm_free = (prob.lm_valid & ~prob.lm_fixed & lm_has_obs).to(torch.float32)
     fixed_trip = mesh is None
-    # the LM steps the while_loops would run (the fixed trip runs them all)
-    n_steps = torch.zeros((), dtype=torch.int32, device=dev)
 
     def lm_inner(kf_T_cw, lm_pos, edge_active, n_iters, live_round):
-        nonlocal n_steps
+        """One round's LM: (poses, landmarks, steps its loop would take)."""
         blocks = _ba_cost_and_blocks(prob, kf_T_cw, lm_pos, fx, fy, cx, cy,
                                      bl, edge_active, mesh)
         lam = 1e-5 * torch.max(torch.diagonal(blocks[1], dim1=1, dim2=2))
         nu = torch.full((), 2.0, dtype=lam.dtype, device=dev)
         live = live_round
+        n_steps = torch.zeros((), dtype=torch.int32, device=dev)
         T, lp = kf_T_cw, lm_pos
         for _ in range(n_iters):
             F, Hpp, Hll, Hpl, bp, blm = blocks
@@ -491,7 +526,7 @@ def local_ba(prob: LocalBAProblem, fx, fy, cx, cy, baseline,
             live = live & ~((step < 1e-5) & finite)
             if not fixed_trip and not bool(live.item()):
                 break
-        return T, lp
+        return T, lp, n_steps
 
     base_active = prob.obs_valid & prob.lm_valid[:, None, None] \
         & prob.kf_valid[None, :, None]
@@ -502,26 +537,44 @@ def local_ba(prob: LocalBAProblem, fx, fy, cx, cy, baseline,
         return n
 
     n_act = torch.clamp(total(torch.sum(base_active)), min=1)
-    kf_T_cw, lm_pos = prob.kf_T_cw, prob.lm_pos
-    inlier_edges = torch.ones_like(prob.obs_valid)
-    live = torch.ones((), dtype=torch.bool, device=dev)   # ~done
-    n_rounds = torch.zeros((), dtype=torch.int32, device=dev)
-    for _ in range(max_rounds):
-        T_r, lp_r = lm_inner(kf_T_cw, lm_pos, base_active & inlier_edges,
-                             iters, live)
+
+    def round_(state):
+        """One round on `state` = [poses, landmarks, inlier edges, rounds,
+        LM steps, live], returned updated; a round after the ratio flag
+        returns it as it was (the fixed trip)."""
+        kf_T_cw, lm_pos, inlier_edges, n_rounds, n_steps, live = state
+        T_r, lp_r, steps_r = lm_inner(kf_T_cw, lm_pos,
+                                      base_active & inlier_edges, iters, live)
         r, _, z_ok = _ba_residuals(prob, T_r, lp_r, fx, fy, cx, cy, bl)
         inl_r = (torch.sum(r * r, dim=-1) < BACKEND_CHI2_TH) \
             & z_ok[..., None]
         ratio = total(torch.sum(inl_r & base_active)) / n_act
         done = ratio > target_inlier_ratio
-        # the rounds after the ratio flag change nothing (the fixed trip)
-        n_rounds = n_rounds + live.to(torch.int32)
-        kf_T_cw = torch.where(live, T_r, kf_T_cw)
-        lm_pos = torch.where(live, lp_r, lm_pos)
-        inlier_edges = torch.where(live, inl_r, inlier_edges)
-        live = live & ~done
-        if not fixed_trip and not bool(live.item()):
+        return [torch.where(live, T_r, kf_T_cw),
+                torch.where(live, lp_r, lm_pos),
+                torch.where(live, inl_r, inlier_edges),
+                n_rounds + live.to(torch.int32), n_steps + steps_r,
+                live & ~done]
+
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    state = round_([prob.kf_T_cw, prob.lm_pos,
+                    torch.ones_like(prob.obs_valid), zero, zero,
+                    torch.ones((), dtype=torch.bool, device=dev)])
+
+    def next_round():
+        # round 1's results are new tensors: the rounds after it update
+        # them in place, and skip on the device once captured
+        for old, new in zip(state, round_(state), strict=True):
+            old.copy_(new)
+
+    for _ in range(max_rounds - 1):
+        if fixed_trip:
+            _if_live(state[-1], next_round)
+        elif bool(state[-1].item()):
+            state = round_(state)
+        else:
             break
+    kf_T_cw, lm_pos, _, n_rounds, n_steps, _ = state
 
     r, _, z_ok = _ba_residuals(prob, kf_T_cw, lm_pos, fx, fy, cx, cy, bl)
     chi2 = torch.sum(r * r, dim=-1)

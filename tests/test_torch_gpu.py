@@ -1,4 +1,5 @@
-"""The CUDA LK kernels, the chunk path and the loop-closing ops' integer
+"""The CUDA LK kernels, the chunk path, the graphs (the local BA's
+rounds skipped by IF nodes included) and the loop-closing ops' integer
 results on the card: tests that need a CUDA device and nvcc.
 
 Every test here is marked `gpu` and skips, with its reason, where there is no
@@ -33,8 +34,8 @@ from ssvio_tpu_torch import frontend as fe
 from ssvio_tpu_torch import graphs
 from ssvio_tpu_torch.config import Settings
 from ssvio_tpu_torch.dataio import synthetic, synthetic_torch
-from ssvio_tpu_torch.ops import (_nvcc, bow, lk, lk_cuda, lk_patch_cuda, orb,
-                                 pyramid, sampling)
+from ssvio_tpu_torch.ops import (_nvcc, ba, bow, lk, lk_cuda, lk_patch_cuda,
+                                 orb, pyramid, sampling)
 from ssvio_tpu_torch.ops import lk_variants_cuda as lkv
 from ssvio_tpu_torch.system import System
 from ssvio_tpu_torch.utils import profiling
@@ -382,6 +383,13 @@ def test_chunk_device_timing_on_gpu():
     trips = torch.stack(list(sys_._engine.ba_trips)).cpu()
     needed = sum(c.value for c in tr.counts("ba.lm_steps_needed", t0))
     assert needed == int(trips[:, 1].sum()) and len(trips) >= 1
+    # every BA ran in the keyframe graph: the rounds it took, 10 steps each
+    assert sys_._engine.ba_mode == "graph"
+    ran = sum(c.value for c in tr.counts("ba.lm_steps_run", t0))
+    skipped = sum(c.value for c in tr.counts("ba.rounds_skipped", t0))
+    rounds = int(trips[:, 0].sum())
+    assert ran == rounds * ba.LOCAL_BA_ITERS
+    assert skipped == len(trips) * ba.LOCAL_BA_ROUNDS - rounds
     assert len(profiling._EVENTS[dev]) >= 5
     sys_.close()
 
@@ -477,7 +485,9 @@ def test_keyframe_graph_capture_on_gpu():
     """A KeyframeGraph captures the keyframe branch of a steady keyframe:
     its replay equals the eager branch bit for bit (the fixed-trip BA
     included), holds one kernel #1 launch a level of both stereo tracks,
-    counts them on every replay, and no replay waits for the device."""
+    counts them on every replay, and no replay waits for the device. A
+    map with most observations moved 20-80 px makes its BA take all five
+    rounds, which the same graph replays bit for bit as well."""
     dev = _device()
     s, L, R = _small_sequence(dev)
     sys_ = System(s, enable_backend=True, device=dev, eager=True)
@@ -511,6 +521,66 @@ def test_keyframe_graph_capture_on_gpu():
     for a, b in zip(lg, lr):
         assert a is None or torch.equal(a, b)
     assert int(ref.kf_slot) >= 0 and 1 <= int(ref.ba_trip[0]) <= 5
+    m = c.m
+    moved = (torch.rand(m.obs_valid.shape, generator=torch.Generator(
+        dev).manual_seed(5), device=dev) < 0.7) & m.obs_valid
+    m = m._replace(obs_uv=m.obs_uv + 50.0 * moved[..., None])
+    args = args[:-1] + (m,)
+    ref = eng.keyframe_branch(*args, is_init=False)
+    got = graph(*args)
+    assert int(ref.ba_trip[0]) == ba.LOCAL_BA_ROUNDS
+    for a, b in zip(*(torch.utils._pytree.tree_leaves(r) for r in (got, ref))):
+        assert a is None or torch.equal(a, b)
+    graph.close()
+
+
+# the local BA at the bench's size (8192 landmarks, a window of 16,
+# scripts/torch_profile_scaling.py's problem) with a share of its edges
+# moved 20-80 px: rounds the BA takes -> (seed, share)
+BA_ROUNDS = {1: (0, 0.0), 3: (0, 0.293), 5: (0, 0.4)}
+
+
+def _ba_problem(dev, seed, share, M=8192, W=16):
+    prob, cam = _tool("torch_profile_scaling").build_problem(M, W, seed)
+    rng = np.random.default_rng(seed + 1)
+    uv = prob.obs_uv.numpy()
+    moved = rng.uniform(size=uv.shape[:3]) < share
+    uv = np.where(moved[..., None],
+                  uv + rng.uniform(20, 80, uv.shape).astype(np.float32), uv)
+    prob = prob._replace(obs_uv=torch.from_numpy(uv))
+    return ba.LocalBAProblem(*(t.to(dev) for t in prob)), cam
+
+
+def test_ba_rounds_replay_like_eager_on_gpu():
+    """One capture of the local BA replays the problems that take 1, 3
+    and 5 rounds: each bit for bit the eager fixed trip (every round run,
+    the state frozen after the ratio flag), rounds and LM steps included;
+    the conditional nodes skip the rounds after the flag, so the 1-round
+    replay takes under 40% of the 5-round replay's device time."""
+    dev = _device()
+    probs = {n: _ba_problem(dev, *v) for n, v in BA_ROUNDS.items()}
+    cam = probs[1][1]
+
+    def bundle(prob):
+        return ba.local_ba(prob, *cam)
+
+    graph = graphs.StaticGraph(bundle, probs[1][0])
+    assert graph._bodies.nodes == ba.LOCAL_BA_ROUNDS - 1
+    ms = {}
+    for n, (prob, _) in probs.items():
+        ref = bundle(prob)
+        got = graph(prob)
+        assert (int(ref.rounds), int(got.rounds)) == (n, n)
+        for a, b in zip(got, ref):
+            assert torch.equal(a, b)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+        start.record()
+        for _ in range(5):
+            graph(prob)
+        end.record()
+        torch.cuda.synchronize()
+        ms[n] = start.elapsed_time(end) / 5
+    assert ms[1] < 0.4 * ms[5], ms
     graph.close()
 
 

@@ -187,6 +187,48 @@ def test_the_stops_freeze_the_state():
             assert torch.equal(x, y)
 
 
+# the round guards' three problems: the ratio flag set after round 1,
+# after round 3 (outlier edges planted at the edge of the target ratio)
+# and never
+GUARD_CASES = {
+    1: CASES[0],
+    3: dict(noise=0.8, outlier_frac=0.265, perturb_pose=0.05, perturb_lm=0.2),
+    5: CASES[3],
+}
+
+
+@pytest.mark.parametrize("skip", [False, True], ids=["uncaptured", "skips"])
+@pytest.mark.parametrize("rounds", sorted(GUARD_CASES))
+def test_round_guards_match_the_host_read_loop(monkeypatch, rounds, skip):
+    """The rounds after the first behind their guard (`ba._if_live`): as
+    the guard runs them outside a capture (every body runs, and its
+    selects freeze the state after the ratio flag), and as a replay of the
+    graph's conditional nodes runs them (a body runs only while its flag
+    is set; here the flag is read on the host). Each is bit for bit the
+    host-read loop, rounds and LM steps included, and meets its guard once
+    a round after the first, set as long as the ratio flag is not."""
+    _, prob, _ = _problems(302, **GUARD_CASES[rounds])
+    guard = ba_t._if_live
+    flags = []
+
+    def if_live(live, body):
+        flags.append(bool(live))
+        if not skip:
+            guard(live, body)
+        elif flags[-1]:
+            body()
+
+    monkeypatch.setattr(ba_t, "_if_live", if_live)
+    rt = ba_t.local_ba(prob, FX, FY, CX, CY, BASELINE)
+    ref, n_rounds, steps = _host_read_local_ba(prob, FX, FY, CX, CY, BASELINE)
+    assert n_rounds == rounds
+    assert flags == [k < rounds for k in range(1, ba_t.LOCAL_BA_ROUNDS)]
+    for f in ref._fields:
+        if getattr(ref, f) is not None:
+            assert torch.equal(getattr(rt, f), getattr(ref, f)), f
+    assert (int(rt.rounds), int(rt.iterations)) == (rounds, steps)
+
+
 def _map_case(seed, fill, dead_rows):
     """_random_map_inputs, and with `dead_rows` the features without a
     landmark, the invalid ones and the right eyes without a match link to

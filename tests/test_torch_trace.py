@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from benchmark import harness, run as bench_run
+from ssvio_tpu_torch import engine
 from ssvio_tpu_torch import frontend as fe
 from ssvio_tpu_torch import graphs
 from ssvio_tpu_torch.config import bench_settings
@@ -288,6 +289,43 @@ def test_ba_steps_match_the_engines_trips(traced_run):
     assert ran == len(trips) * ba.LOCAL_BA_ROUNDS * ba.LOCAL_BA_ITERS
     # the CPU makes no event: no device times
     assert not tr.counts("engine.period_ms", t0)
+
+
+def test_cpu_bas_run_every_round(traced_run):
+    """The CPU's BAs run the fixed trip op by op: no round skipped."""
+    sys_, _, t0 = traced_run
+    assert sys_._engine.ba_mode == "fixed trip"
+    skipped = profiling.TRACE.counts("ba.rounds_skipped", t0)
+    assert skipped and sum(c.value for c in skipped) == 0
+
+
+# three BAs whose loops took 1, 3 and 5 rounds and 10, 27 and 50 LM steps,
+# by the mode they ran in: (LM steps run, rounds skipped)
+BA_WORK = {"graph": (90, 6), "fixed trip": (150, 0), "mesh": (87, 6)}
+
+
+@pytest.mark.parametrize("mode", list(BA_WORK))
+def test_chunk_timing_counts_each_modes_ba_work(mode):
+    """ChunkTiming.record's LM steps and skipped rounds by a BA's mode: a
+    graph runs each of its rounds whole and skips the rest, a fixed trip
+    runs every round, a mesh BA the steps its loops took."""
+    timing = engine.ChunkTiming(torch.device("cpu"))
+    for trip in ((1, 10), (3, 27), (5, 50)):
+        timing.trips.append(torch.tensor(trip, dtype=torch.int32))
+        timing.modes.append(mode)
+    t0 = profiling.CLOCK()
+    timing.fetch()
+    timing.record()
+
+    def total(name):
+        return sum(c.value for c in profiling.TRACE.counts(name, t0))
+
+    assert total("ba.lm_steps_needed") == 87
+    assert (total("ba.lm_steps_run"), total("ba.rounds_skipped")) \
+        == BA_WORK[mode]
+    assert not timing.trips and not timing.modes
+    with pytest.raises(ValueError):
+        engine.ba_work("eager", 1, 10)
 
 
 def test_no_timing_is_taken_while_off(frames):
