@@ -330,5 +330,15 @@ def robotcar_xb3_wide_settings() -> Settings:
     return s
 
 
+def robotcar_xb3_slam_settings() -> Settings:
+    """robotcar_xb3_wide_settings() as full stereo SLAM: loop closing on,
+    with the JAX bench's database warm-up of 24 keyframes
+    (bench_loop_settings; the reference's gate is 50, kitti_00.yaml:70)."""
+    s = robotcar_xb3_wide_settings()
+    s.loop_closing_open = True
+    s.loop_db_min_size = 24
+    return s
+
+
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m

@@ -258,6 +258,10 @@ class Engine:
         self._no_kf = (torch.zeros((), dtype=torch.bool, device=dev),
                        torch.full((), -1, dtype=torch.int32, device=dev),
                        torch.full((), -1, dtype=torch.int32, device=dev))
+        # set by the System when a loop correction has moved and fused the
+        # window; the next steady keyframe's local BA then runs all its
+        # rounds (`local_ba`'s `hold`), and the flag is cleared after it
+        self.after_correction = torch.zeros((), dtype=torch.bool, device=dev)
         self.dist = None
         if mesh is not None:
             if mesh.device != frontend.device:
@@ -351,7 +355,8 @@ class Engine:
         if self.enable_backend:
             prob = mapmod.ba_problem_from_map(m2)
             res = (self.dist(prob) if self.dist is not None else
-                   ba.local_ba(prob, f._fx, f._fy, f._cx, f._cy, f._baseline))
+                   ba.local_ba(prob, f._fx, f._fy, f._cx, f._cy, f._baseline,
+                               hold=self.after_correction))
             m2 = mapmod.apply_ba_result(m2, res.kf_T_cw, res.lm_pos,
                                         res.obs_valid)
             T2 = torch.index_select(m2.kf_pose, 0,
@@ -365,16 +370,21 @@ class Engine:
                   m: mapmod.MapState, is_init: bool) -> KeyframeOut:
         """keyframe_branch on a frame: a steady keyframe through the
         canvas's keyframe graph (built here at its first one) unless the
-        engine is eager or has a mesh; an init frame eagerly."""
+        engine is eager or has a mesh; an init frame eagerly. A steady
+        keyframe's BA clears `after_correction`, outside the graph."""
         args = (img_r, pyr_l, out.feat, out.T_cw, out.rel_motion, m)
         if self.eager or is_init or self.dist is not None:
-            return self.keyframe_branch(*args, is_init=is_init)
-        key = tuple(img_r.shape)
-        graph = self.kf_graphs.get(key)
-        if graph is None:
-            graph = self.kf_graphs[key] = graphs.KeyframeGraph(
-                self.keyframe_branch, *args)
-        return graph(*args)
+            k = self.keyframe_branch(*args, is_init=is_init)
+        else:
+            key = tuple(img_r.shape)
+            graph = self.kf_graphs.get(key)
+            if graph is None:
+                graph = self.kf_graphs[key] = graphs.KeyframeGraph(
+                    self.keyframe_branch, *args)
+            k = graph(*args)
+        if not is_init and self.enable_backend:
+            self.after_correction.zero_()
+        return k
 
     @property
     def tracking_path(self) -> str:

@@ -107,6 +107,11 @@ class Frontend:
         fxl = self.rig.intr_left
         self._fx, self._fy = fxl.fx, fxl.fy
         self._cx, self._cy = fxl.cx, fxl.cy
+        # the left camera as the settings give it, as Python floats, for
+        # the tracking LM: it computes in float32 with them as with the
+        # tensors above, and takes its final inlier gate in float64
+        self._cam = (s.cam_left.fx, s.cam_left.fy, s.cam_left.cx,
+                     s.cam_left.cy)
         self._baseline = self.rig.baseline
         self._dist_l = (s.cam_left.k1, s.cam_left.k2,
                         s.cam_left.p1, s.cam_left.p2)
@@ -178,7 +183,7 @@ class Frontend:
         # the optimizer starts from T_last, not the extrapolated prior (the
         # prior seeds LK above; see the JAX package for the measurement)
         res = ba.pose_only_optimize(T_last, p_w, new_xy, tracked,
-                                    self._fx, self._fy, self._cx, self._cy)
+                                    *self._cam)
         feat_out = FeatState(xy=new_xy, lm_slot=feat.lm_slot,
                              lm_gid=feat.lm_gid, valid=tracked & res.inlier,
                              octave=feat.octave)

@@ -30,7 +30,10 @@ What differs from the JAX package, by mechanism only:
 The ingest (`process_keyframes_batch`), the deferred verifications
 (`poll`) and each candidate's verification (`loopclosing.verify`, its
 host read and any correction included) are spans of the port's recorder
-(`utils/profiling.py`).
+(`utils/profiling.py`); inside a verification, an accepted correction
+(`loopclosing.correct`) and its PGO (`loopclosing.pgo`). Counters:
+`loopclosing.verify_attempted` / `loopclosing.verify_accepted`, and a
+PGO's keyframes and edges (`pgo.keyframes`, `pgo.edges`).
 """
 
 from __future__ import annotations
@@ -727,8 +730,14 @@ class LoopClosing:
         the correction still owed is C_live = (C_{j+1} ... C_n)^-1 C_raw.
         The gates and the correction use C_live. The correction reads and
         replaces system.map, the live map (under dispatch-ahead, a chunk
-        ahead of this keyframe)."""
+        ahead of this keyframe).
+
+        A span `loopclosing.verify` of the recorder, with the counter
+        `loopclosing.verify_attempted`; an accepted correction is its child
+        span `loopclosing.correct` (counter `loopclosing.verify_accepted`),
+        and the PGO that ends it the grandchild `loopclosing.pgo`."""
         s = self.s
+        profiling.TRACE.add("loopclosing.verify_attempted")
         loop_gid = int(self.db_gid[best_row])
         T_np = np.asarray(T_cw.detach().cpu() if torch.is_tensor(T_cw)
                           else T_cw, np.float32)
@@ -805,8 +814,20 @@ class LoopClosing:
         self.last_loop_gid = loop_gid       # PGO fixes only this loop KF
         self._residual_anchor = (kf_gid, 0.0)
         self._large_hist = []
+        n_fused = self._correct(system, feat, best_j, pnp_inlier, best_row,
+                                loop_gid, C_live)
+        return self._log(kf_gid, loop_gid, best_score, n_matches, n_inliers,
+                         err, True, n_fused)
 
-        # ---- correction: rigid active-map re-anchor + fusion + PGO
+    @profiling.spanned("loopclosing.correct")
+    def _correct(self, system, feat, best_j, pnp_inlier, best_row: int,
+                 loop_gid: int, C_live: np.ndarray) -> int:
+        """An accepted correction (the reference's LoopCorrect): the
+        active map re-anchored rigidly by C_live, its matched landmarks
+        fused into the loop keyframe's, the result installed into the
+        System, then PGO. Returns the landmarks fused."""
+        s = self.s
+        profiling.TRACE.add("loopclosing.verify_accepted")
         m = system.map
         C = torch.as_tensor(C_live, dtype=torch.float32, device=self.device)
         kf_new, lm_new = self._correct_active_impl(m.kf_pose, m.lm_pos,
@@ -834,8 +855,7 @@ class LoopClosing:
         system.apply_loop_correction(self, m_f, C_live,
                                      relink=(remap, old_gid, m_f.lm_gid))
         self._pose_graph_optimize(system)
-        return self._log(kf_gid, loop_gid, best_score, n_matches, n_inliers,
-                         err, True, n_fused)
+        return n_fused
 
     # ------------------------------------------------------------------
     def relocalize(self, pyr_l, xy: torch.Tensor, valid: torch.Tensor):
@@ -910,6 +930,7 @@ class LoopClosing:
     # pose-graph optimization over the host keyframe records (reference
     # PoseGraphOptimization :458-594)
     # ------------------------------------------------------------------
+    @profiling.spanned("loopclosing.pgo")
     def _pose_graph_optimize(self, system):
         kfs = system.keyframes
         n = len(kfs)
@@ -944,6 +965,8 @@ class LoopClosing:
         edges += [(gid_to_idx[b], gid_to_idx[a], Z)
                   for (a, b, Z) in self.loop_edges
                   if a in gid_to_idx and b in gid_to_idx]
+        profiling.TRACE.add("pgo.keyframes", n)
+        profiling.TRACE.add("pgo.edges", len(edges))
         E = _round_pow2(len(edges))
         ei = np.zeros(E, np.int32)
         ej = np.zeros(E, np.int32)

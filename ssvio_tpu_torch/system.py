@@ -16,9 +16,12 @@ ingests every keyframe: at once on the per-frame path, at the chunk's
 collect on the chunk path, where its candidates are verified at the next
 collect (or at `finish()`). A correction applied while a chunk was in
 flight is recorded in `_gauge_events`, and collect_chunk re-gauges that
-chunk's read-back poses with it. A LOST frame relocalizes against the
-keyframe database when Settings.relocalization_open is set: the next
-run_step frame, or the chunk's last frame at its collect.
+chunk's read-back poses with it. After a correction the next steady
+keyframe's local BA runs all its rounds (`Engine.after_correction`),
+where the reference and the JAX package stop at the first round that
+meets the inlier ratio. A LOST frame relocalizes against the keyframe
+database when Settings.relocalization_open is set: the next run_step
+frame, or the chunk's last frame at its collect.
 
 With a mesh (`parallel.dist_ba.Mesh`, this process its rank 0) the local
 BA of every steady keyframe, on both paths, is sharded over the mesh's
@@ -150,6 +153,7 @@ class System:
         self._gauge_events = []     # [C [3,4] np, ...]
         self.stats = {"n_keyframes": 0, "n_ba": 0, "n_dist_ba": 0,
                       "n_loops": 0, "warnings": []}
+        self._engine.after_correction.zero_()
         if self.loopclosing is not None:
             old = self.loopclosing
             self.loopclosing = lc = self._new_loopclosing()
@@ -276,6 +280,9 @@ class System:
         if ev is not None and ev.corrected:
             self.stats["n_loops"] += 1
             self.stats["n_fused"] = self.stats.get("n_fused", 0) + ev.n_fused
+            # the window was moved and fused: the next steady keyframe's
+            # local BA runs all its rounds (Engine.after_correction)
+            self._engine.after_correction.fill_(True)
 
     # ------------------------------------------------------------------
     def _pad_stack(self, imgs) -> torch.Tensor:

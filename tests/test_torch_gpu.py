@@ -1,6 +1,7 @@
 """The CUDA LK kernels, the chunk path, the graphs (the local BA's
-rounds skipped by IF nodes included) and the loop-closing ops' integer
-results on the card: tests that need a CUDA device and nvcc.
+rounds skipped by IF nodes included), the loop-closing ops' integer
+results and the PGO of a loop drive against the benchmark's plain
+reference on the card: tests that need a CUDA device and nvcc.
 
 Every test here is marked `gpu` and skips, with its reason, where there is no
 CUDA device. This file imports neither jax nor the JAX package (the GPU's
@@ -1155,3 +1156,37 @@ def test_lk_kernels_tool_on_gpu(monkeypatch):
         assert k["us_per_iter"] > 0
         assert k["flow"]["hard"]["chain"] == 30
     assert len(r["kernels"]["serial"]["per_level"]) == 4
+
+
+LOOP_CUT = 384           # frames: two laps of the ring
+LOOP_SEED = 2147483651
+
+
+def test_loop_pgo_matches_the_reference_on_gpu():
+    """The `robotcar-loop-offline` cell's drive (`benchmark/traffic/
+    ring-offline.json`) cut at two laps, run through `System.run_chunk` in
+    chunks of 32 with loop closing on: at least one correction, and every
+    PGO the port solves is within `benchmark/loop_check.py::GAP_LIMIT` of
+    the float64 optimum of `benchmark/reference_loop.py`, which the
+    reference's own solve in TF32 is not (gap = (cost - optimum) /
+    optimum)."""
+    dev = _device()
+    from benchmark import cells, loop_check, traffic
+    cell = cells.load("robotcar-loop-offline")
+    s = cells.settings_from(cell.config)
+    drive = dict(cell.traffic["drive"], frames=LOOP_CUT)
+    problems = []
+    with torch.no_grad(), loop_check.captured_pgo(problems):
+        sys_ = System(s, enable_backend=True, enable_loop_closing=True,
+                      device=dev)
+        d = traffic.make_drive(drive, LOOP_SEED, s, sys_.w, sys_.h, dev)
+        for c in range(0, LOOP_CUT, 32):
+            sys_.run_chunk(d.left[c:c + 32], d.right[c:c + 32],
+                           [(c + j) / s.fps for j in range(32)])
+        sys_.finish()
+        n_loops = sys_.stats["n_loops"]
+        sys_.close()
+    assert n_loops >= 1 and len(problems) == n_loops
+    for prob, port in problems:
+        g = loop_check.judge_problem(prob, port, dev)
+        assert g["port_gap"] < loop_check.GAP_LIMIT <= g["control_gap"], g
