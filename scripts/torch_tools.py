@@ -21,9 +21,11 @@ from ssvio_tpu_torch.frontend import resolve_device  # noqa: E402
 from ssvio_tpu_torch.system import System  # noqa: E402
 
 # what a snapshot shares with the live System instead of copying: the
-# settings, the stateless engine and frontend, the upload stream
+# settings, the stateless engine and frontend, the upload stream; of the
+# loop closer the settings, the sample hook, the generator (its state is
+# copied) and the verification's graphs
 SHARED = ("s", "frontend", "_engine", "_upload_stream", "loopclosing")
-LC_SHARED = ("s", "sample_idx_fn", "_gen")
+LC_SHARED = ("s", "sample_idx_fn", "_gen", "_graphs")
 
 
 def tool_device(tool: str, device=None) -> torch.device:

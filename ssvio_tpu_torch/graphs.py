@@ -55,9 +55,11 @@ settings fix the LK flavour) at its first frame of that branch.
 
 The capture itself is generic (`StaticGraph`: any function of a tuple of
 tensors, shapes fixed at construction); the profiling tools capture
-single stages with it. On the CPU the same function runs on the same
-buffers without a capture, so the CPU tests exercise the copy-in and the
-copy-out.
+single stages with it, and the loop closer the three stretches of a
+verification that read nothing from the host (`VerifyGraph`,
+`loopclosing.VerifyGraphs`). On the CPU the same function runs on the
+same buffers without a capture, so the CPU tests exercise the copy-in
+and the copy-out.
 """
 
 import functools
@@ -122,7 +124,8 @@ class StaticGraph:
     to the buffers' dtypes) and returns clones of the outputs. Call
     `close()` to release the graph and its private memory pool."""
 
-    REPLAYS = TRACK_REPLAYS         # the recorder's counter of its replays
+    # the recorder's counter of its replays (None: its owner counts them)
+    REPLAYS: Optional[str] = TRACK_REPLAYS
 
     def __init__(self, fn: Callable, *inputs):
         self._fn = fn
@@ -198,7 +201,8 @@ class StaticGraph:
             self._graph.replay()
             _set_counts({k: v + self.launches[k]
                          for k, v in launch_counts().items()})
-            profiling.TRACE.add(self.REPLAYS)
+            if self.REPLAYS:
+                profiling.TRACE.add(self.REPLAYS)
             out = self._out
         self.calls += 1
         return pytree.tree_map_only(torch.Tensor, torch.clone, out)
@@ -243,3 +247,12 @@ class KeyframeGraph(StaticGraph):
         super().__init__(functools.partial(branch, is_init=False),
                          img_r.to(torch.float32), pyr_l, feat, T_cw,
                          rel_motion, m)
+
+
+class VerifyGraph(StaticGraph):
+    """One stage of a loop verification (`loopclosing.VerifyGraphs`) as a
+    StaticGraph, built from inputs of the stage's shapes. Its replays
+    count in no counter of their own: the loop closer counts the three
+    replays of a verification as one (`loopclosing.VERIFY_REPLAYS`)."""
+
+    REPLAYS = None

@@ -6,7 +6,12 @@ eigen-problem per hypothesis, `torch.linalg.eigh` / `svd` / `det` over the
 batch), a batched 5-step LM polish of each hypothesis on its own sample
 (`ba._lm_loop_6dof_batched`), a dense [hyp, N] reprojection inlier count,
 a re-fit of every hypothesis on its inliers, and the 4x10 pose-only LM of
-`ops/ba.py` on the best. Nothing before that last call reads the host.
+`ops/ba.py` on the best. `pnp_ransac` composes these as stages: the two
+DLT fits (`minimal_fit`, `refit`) wait for the device (CUDA's `eigh` and
+`svd` check their results on the host); what lies between them
+(`sample_indices` on drawn uniforms, `polish_and_score`,
+`select_and_refine`) reads nothing from the host, so the loop closer
+replays it as CUDA graphs with the same ops.
 
 The samples: the JAX package draws them from a `jax.random` key, whose
 numbers a torch generator cannot give. `pnp_ransac` takes a
@@ -95,21 +100,113 @@ def _dlt_pose(p_w: torch.Tensor, xn: torch.Tensor,
     return se3.make(R, p4 / scale[:, None])
 
 
+def draw_uniforms(n_hypotheses: int, n_points: int,
+                  generator: Optional[torch.Generator] = None,
+                  device=None) -> torch.Tensor:
+    """The [n_hypotheses, n_points] float32 uniforms behind
+    `sample_indices`, drawn from `generator` (on its device) or from the
+    default generator of `device`."""
+    gdev = generator.device if generator is not None else device
+    return torch.rand((n_hypotheses, n_points), generator=generator,
+                      device=gdev, dtype=torch.float32)
+
+
 def sample_indices(valid: torch.Tensor, n_hypotheses: int, sample_size: int,
-                   generator: Optional[torch.Generator] = None
-                   ) -> torch.Tensor:
+                   generator: Optional[torch.Generator] = None,
+                   uniforms: Optional[torch.Tensor] = None) -> torch.Tensor:
     """[n_hypotheses, sample_size] indices, each row drawn without
     replacement from the valid points (Gumbel top-k, as the JAX package
     draws them; duplicated points would leave the 11-dof DLT
     underdetermined). Invalid points fill a row only where fewer than
-    sample_size are valid."""
-    N = valid.shape[0]
-    gdev = generator.device if generator is not None else valid.device
-    u = torch.rand((n_hypotheses, N), generator=generator, device=gdev,
-                   dtype=torch.float32).to(valid.device)
+    sample_size are valid. The uniforms are `uniforms` where given (what
+    `draw_uniforms` drew: then nothing here reads the host or a
+    generator, so a CUDA graph can hold it), else drawn from `generator`."""
+    if uniforms is None:
+        uniforms = draw_uniforms(n_hypotheses, valid.shape[0], generator,
+                                 valid.device)
+    u = uniforms.to(valid.device)
     gumbel = -torch.log(-torch.log(torch.clamp(u, 1e-20, 1.0 - 1e-7)))
     logits = torch.where(valid, 0.0, -1e9).to(torch.float32)
     return torch.topk(gumbel + logits[None, :], sample_size, dim=1).indices
+
+
+# ---------------------------------------------------------------------------
+# the stages pnp_ransac composes (module docstring)
+# ---------------------------------------------------------------------------
+
+def normalized(uv: torch.Tensor, fx, fy, cx, cy) -> torch.Tensor:
+    """uv [N, 2] pixels -> [N, 2] normalised image coordinates."""
+    return torch.stack([(uv[:, 0] - cx) / fx, (uv[:, 1] - cy) / fy], dim=-1)
+
+
+def _ones(idx: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    return torch.ones(idx.shape, dtype=like.dtype, device=like.device)
+
+
+def minimal_fit(p_w: torch.Tensor, xn: torch.Tensor,
+                idx: torch.Tensor) -> torch.Tensor:
+    """The 6-point DLT of every hypothesis' sample (idx [H, S]): [H, 3, 4].
+    Reads the host."""
+    return _dlt_pose(p_w[idx], xn[idx], _ones(idx, p_w))
+
+
+def _score(T, p_w, uv, valid, fx, fy, cx, cy, reproj_threshold):
+    """Each pose's inliers [H, N] and their count [H] (-1 for a pose that
+    is not finite)."""
+    r, _, z_ok = ba.reproject_residual(T[:, None], p_w[None], uv[None],
+                                       fx, fy, cx, cy)
+    err2 = torch.sum(r * r, dim=-1)                           # [H, N]
+    inl = (err2 < reproj_threshold ** 2) & z_ok & valid[None]
+    finite = torch.all(torch.isfinite(T.reshape(T.shape[0], -1)), dim=1)
+    n = torch.sum(inl, dim=1)
+    return inl, torch.where(finite, n, torch.full_like(n, -1))
+
+
+def polish_and_score(T_dlt, p_w, uv, valid, idx, fx, fy, cx, cy,
+                     reproj_threshold: float):
+    """The 5-step LM polish of each hypothesis on its own sample, its
+    inliers and score, and the LO re-fit's weights. Returns (T_hyp
+    [H, 3, 4], inl [H, N], scores [H], w_lo [H, N]). No host read."""
+    # Gauss-Newton polish of each hypothesis on its own sample points: the
+    # raw minimal DLT amplifies pixel noise badly; a few LM steps on the 6
+    # points recover it
+    T_hyp = ba._lm_loop_6dof_batched(T_dlt, p_w[idx], uv[idx],
+                                     _ones(idx, p_w), fx, fy, cx, cy, 5)
+    inl, scores = _score(T_hyp, p_w, uv, valid, fx, fy, cx, cy,
+                         reproj_threshold)
+    # LO-RANSAC: every hypothesis is re-fitted on all of its inliers
+    # (refit, a non-minimal weighted DLT, still one batched pass)
+    w_lo = inl.to(p_w.dtype) * (scores >= idx.shape[1])[:, None]
+    return T_hyp, inl, scores, w_lo
+
+
+def refit(p_w: torch.Tensor, xn: torch.Tensor,
+          w_lo: torch.Tensor) -> torch.Tensor:
+    """The LO re-fit: each hypothesis' weighted DLT on its inliers, [H, 3,
+    4]. Reads the host."""
+    return _dlt_pose(p_w, xn, w_lo)
+
+
+def select_and_refine(T_lo, T_hyp, inl, scores, p_w, uv, valid, fx, fy, cx,
+                      cy, reproj_threshold: float, min_inliers: int,
+                      sample_size: int) -> PnPResult:
+    """Each hypothesis keeps whichever of its pose and its re-fit scores
+    better; the best is refined on its inliers by the 4x10 pose-only LM.
+    No host read: the best is taken with index_select, which gives the
+    bits indexing by it would."""
+    inl_lo, scores_lo = _score(T_lo, p_w, uv, valid, fx, fy, cx, cy,
+                               reproj_threshold)
+    better = scores_lo > scores
+    T_all = torch.where(better[:, None, None], T_lo, T_hyp)
+    inl = torch.where(better[:, None], inl_lo, inl)
+    scores = torch.maximum(scores, scores_lo)
+
+    best = torch.argmax(scores).reshape(1)
+    res = ba.pose_only_optimize(T_all.index_select(0, best)[0], p_w, uv,
+                                inl.index_select(0, best)[0], fx, fy, cx, cy)
+    ok = ((res.n_inliers >= min_inliers)
+          & (scores.index_select(0, best)[0] >= sample_size))
+    return PnPResult(res.T_cw, res.inlier, res.n_inliers, ok)
 
 
 def pnp_ransac(p_w: torch.Tensor, uv: torch.Tensor, valid: torch.Tensor,
@@ -121,49 +218,17 @@ def pnp_ransac(p_w: torch.Tensor, uv: torch.Tensor, valid: torch.Tensor,
     [N]. The hypotheses' samples come from `sample_idx` ([n_hypotheses,
     sample_size] integer indices into the points) where given, else from
     `generator` (the default generator of the points' device if None).
-    `min_inliers` mirrors the reference's >= 10 gate."""
-    xn = torch.stack([(uv[:, 0] - cx) / fx, (uv[:, 1] - cy) / fy], dim=-1)
+    `min_inliers` mirrors the reference's >= 10 gate. The stages above,
+    op by op."""
+    xn = normalized(uv, fx, fy, cx, cy)
     if sample_idx is None:
         idx = sample_indices(valid, n_hypotheses, sample_size, generator)
     else:
         idx = sample_idx.to(p_w.device).long()
-        n_hypotheses, sample_size = idx.shape
-    samp_pw = p_w[idx]                        # [H, S, 3]
-    samp_xn = xn[idx]
-    samp_w = torch.ones((n_hypotheses, sample_size), dtype=p_w.dtype,
-                        device=p_w.device)
-
-    T_hyp = _dlt_pose(samp_pw, samp_xn, samp_w)               # [H, 3, 4]
-    # Gauss-Newton polish of each hypothesis on its own sample points: the
-    # raw minimal DLT amplifies pixel noise badly; a few LM steps on the 6
-    # points recover it
-    T_hyp = ba._lm_loop_6dof_batched(T_hyp, samp_pw, uv[idx], samp_w,
-                                     fx, fy, cx, cy, 5)
-
-    def score(T):
-        r, _, z_ok = ba.reproject_residual(T[:, None], p_w[None], uv[None],
-                                           fx, fy, cx, cy)
-        err2 = torch.sum(r * r, dim=-1)                       # [H, N]
-        inl = (err2 < reproj_threshold ** 2) & z_ok & valid[None]
-        finite = torch.all(torch.isfinite(T.reshape(T.shape[0], -1)), dim=1)
-        n = torch.sum(inl, dim=1)
-        return inl, torch.where(finite, n, torch.full_like(n, -1))
-
-    inl, scores = score(T_hyp)
-
-    # LO-RANSAC: re-fit every hypothesis on all of its inliers (non-minimal
-    # weighted DLT, still one batched pass), keep whichever scores better
-    w_lo = inl.to(p_w.dtype) * (scores >= sample_size)[:, None]
-    T_lo = _dlt_pose(p_w, xn, w_lo)
-    inl_lo, scores_lo = score(T_lo)
-    better = scores_lo > scores
-    T_all = torch.where(better[:, None, None], T_lo, T_hyp)
-    inl = torch.where(better[:, None], inl_lo, inl)
-    scores = torch.maximum(scores, scores_lo)
-
-    best = torch.argmax(scores)
-    # refine on the RANSAC inliers with the 4x10 pose-only LM
-    res = ba.pose_only_optimize(T_all[best], p_w, uv, inl[best],
-                                fx, fy, cx, cy)
-    ok = (res.n_inliers >= min_inliers) & (scores[best] >= sample_size)
-    return PnPResult(res.T_cw, res.inlier, res.n_inliers, ok)
+        sample_size = idx.shape[1]
+    T_hyp, inl, scores, w_lo = polish_and_score(
+        minimal_fit(p_w, xn, idx), p_w, uv, valid, idx, fx, fy, cx, cy,
+        reproj_threshold)
+    return select_and_refine(refit(p_w, xn, w_lo), T_hyp, inl, scores, p_w,
+                             uv, valid, fx, fy, cx, cy, reproj_threshold,
+                             min_inliers, sample_size)

@@ -115,7 +115,7 @@ class System:
     def _new_loopclosing(self) -> LoopClosing:
         f = self.frontend
         return LoopClosing(self.s, f._fx, f._fy, f._cx, f._cy,
-                           device=self.device)
+                           device=self.device, eager=self._engine.eager)
 
     def reset(self, keep_vocab: bool = False):
         """Return to the fresh INITING state. keep_vocab carries the
@@ -157,6 +157,9 @@ class System:
         if self.loopclosing is not None:
             old = self.loopclosing
             self.loopclosing = lc = self._new_loopclosing()
+            # the verification's graphs: their shapes and intrinsics are
+            # the System's, so a capture serves every drive
+            lc._graphs = old._graphs
             if keep_vocab and old.vocab is not None:
                 lc.vocab = old.vocab
                 lc._vocab_levels = old._vocab_levels
@@ -557,10 +560,13 @@ class System:
         self._poll_loopclosing()
 
     def close(self):
-        """Release the engine's tracking graphs, and with a mesh stop the
-        ranks that serve its local BA (they return from dist_ba.serve); the
-        System's BA cannot run after it."""
+        """Release the engine's graphs and the loop closer's verification
+        graphs, and with a mesh stop the ranks that serve its local BA
+        (they return from dist_ba.serve); the System's BA cannot run after
+        it."""
         self._engine.close()
+        if self.loopclosing is not None:
+            self.loopclosing.close()
         if self._engine.dist is not None:
             self._engine.dist.close()
 

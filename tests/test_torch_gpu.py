@@ -1190,3 +1190,121 @@ def test_loop_pgo_matches_the_reference_on_gpu():
     for prob, port in problems:
         g = loop_check.judge_problem(prob, port, dev)
         assert g["port_gap"] < loop_check.GAP_LIMIT <= g["control_gap"], g
+
+
+# ----------------------------------------------------------------------
+# the loop verification's graphs (loopclosing.VerifyGraphs)
+# ----------------------------------------------------------------------
+
+class _Warns:
+    def _warn(self, msg):
+        pass
+
+
+def _sync_free_calls(monkeypatch):
+    """Every StaticGraph call under set_sync_debug_mode("error"): a call
+    that waits for the device raises."""
+    call = graphs.StaticGraph.__call__
+
+    def sync_free(self, *a):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return call(self, *a)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    monkeypatch.setattr(graphs.StaticGraph, "__call__", sync_free)
+
+
+def test_verify_graphs_replay_like_eager_on_gpu(monkeypatch):
+    """A verification at the cells' sizes (512 features, 8 octaves, 128
+    hypotheses: scripts/torch_profile_verify.py's scene) on several
+    candidates, the last after the database grew: replayed through
+    VerifyGraphs (no replay waits for the device) and op by op
+    (_verify_impl) from the same generator state, equal pack, matches and
+    inliers (the same kernels on the same data: capture changes no
+    cuBLAS or cuSOLVER choice here, as the tracking graph's tests find
+    too). One capture, counted once; one VERIFY_REPLAYS a verification;
+    the revisit verified and the unrelated row's PnP rejected (its
+    random descriptors pass the adaptive Hamming gate in numbers)."""
+    from ssvio_tpu_torch import loopclosing as lcm
+    dev = _device()
+    tool = _tool("torch_profile_verify")
+    s = tool.settings()
+    cam = s.cam_left
+    lc = lcm.LoopClosing(s, cam.fx, cam.fy, cam.cx, cam.cy, device=dev)
+    sc = tool.scene(lc)
+    row, brow, xy, T = sc["row"], sc["brow"], sc["xy"], sc["T_est"]
+    xy2 = xy + 1.5 * torch.randn(xy.shape, device=dev, generator=torch.
+                                 Generator(dev).manual_seed(3))
+    cands = [(row, brow, xy, T), (row, 4, xy, T), (row, brow, xy2, T), None,
+             (row, brow, xy, T)]
+    profiling.TRACE.reset(lcm.VERIFY_REPLAYS, lcm.VERIFY_CAPTURES)
+    _sync_free_calls(monkeypatch)
+    packs = []
+    with torch.no_grad():
+        for i, c in enumerate(cands):
+            if c is None:
+                lc._grow(_Warns())
+                continue
+            lc._gen.manual_seed(100 + i)
+            want = lc._verify_impl(lc.desc_db, lc.desc_valid, lc.lm_has,
+                                   lc.lm_pos, *c)
+            lc._gen.manual_seed(100 + i)
+            got = lc._verify(*c)
+            for a, b in zip(got, want):
+                assert torch.equal(a, b)
+            packs.append(got[0].cpu().numpy())
+    counters = profiling.TRACE.counters
+    assert lc._graphs.captured and lc.cap == 2 * s.max_keyframes_db
+    assert counters[lcm.VERIFY_CAPTURES] == 1
+    assert counters[lcm.VERIFY_REPLAYS] == len(packs) == 4
+    assert [g.calls for g in lc._graphs.stages] == [4] * 3
+    assert packs[0][1] == 1.0 and packs[0][2] >= 300
+    assert packs[1][1] == 0.0
+    assert packs[3][1] == 1.0
+    lc.close()
+    assert lc._graphs is None
+
+
+VERIFY_CUT = 384         # frames of the straight drive: verifies from ~220
+VERIFY_SEED = 2147483659
+
+
+def test_verify_replays_count_every_verification_on_gpu():
+    """`kitti-straight-offline`'s drive cut to VERIFY_CUT frames, twice,
+    through System.run_chunk in chunks of 32 with reset(keep_vocab=True)
+    between, as the benchmark drives it: the verification graphs are
+    captured once, with the vocabulary, and handed over to the second
+    drive's loop closer; both drives verify, and every verification
+    replays them (loopclosing.verify_replays equals
+    loopclosing.verify_attempted)."""
+    from benchmark import cells, traffic
+    from ssvio_tpu_torch import loopclosing as lcm
+    dev = _device()
+    cell = cells.load("kitti-straight-offline")
+    s = cells.settings_from(cell.config)
+    drive = dict(cell.traffic["drive"], frames=VERIFY_CUT)
+    attempted = "loopclosing.verify_attempted"
+    names = (lcm.VERIFY_REPLAYS, lcm.VERIFY_CAPTURES, attempted)
+    profiling.TRACE.reset(*names)
+    counters = profiling.TRACE.counters
+    held, tried = [], []
+    with torch.no_grad():
+        sys_ = System(s, enable_backend=True, enable_loop_closing=True,
+                      device=dev)
+        d = traffic.make_drive(drive, VERIFY_SEED, s, sys_.w, sys_.h, dev)
+        for _ in range(2):
+            for c in range(0, VERIFY_CUT, 32):
+                sys_.run_chunk(d.left[c:c + 32], d.right[c:c + 32],
+                               [(c + j) / s.fps for j in range(32)])
+            sys_.finish()
+            held.append(sys_.loopclosing._graphs)
+            tried.append(counters.get(attempted, 0))
+            sys_.reset(keep_vocab=True)
+        assert sys_.loopclosing._graphs is held[0]
+        sys_.close()
+    assert held[0] is held[1] and held[0].captured
+    assert counters[lcm.VERIFY_CAPTURES] == 1
+    assert 0 < tried[0] < tried[1]
+    assert counters[lcm.VERIFY_REPLAYS] == counters[attempted] == tried[1]
+

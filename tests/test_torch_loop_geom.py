@@ -203,6 +203,94 @@ def test_pnp_batched_parts_have_no_host_read(monkeypatch):
     assert reads == []
 
 
+def _pnp_ransac_one_function(p_w, uv, valid, fx, fy, cx, cy, generator=None,
+                             n_hypotheses=128, sample_size=6,
+                             reproj_threshold=5.991, min_inliers=10,
+                             sample_idx=None):
+    """pnp_ransac written as one function, the best picked by indexing:
+    the bits its stages (ops/pnp.py) must give."""
+    xn = torch.stack([(uv[:, 0] - cx) / fx, (uv[:, 1] - cy) / fy], dim=-1)
+    if sample_idx is None:
+        idx = pnp_t.sample_indices(valid, n_hypotheses, sample_size,
+                                   generator)
+    else:
+        idx = sample_idx.long()
+        n_hypotheses, sample_size = idx.shape
+    samp_pw, samp_xn = p_w[idx], xn[idx]
+    samp_w = torch.ones((n_hypotheses, sample_size))
+    T_hyp = pnp_t._dlt_pose(samp_pw, samp_xn, samp_w)
+    T_hyp = ba_t._lm_loop_6dof_batched(T_hyp, samp_pw, uv[idx], samp_w,
+                                       fx, fy, cx, cy, 5)
+
+    def score(T):
+        r, _, z_ok = ba_t.reproject_residual(T[:, None], p_w[None],
+                                             uv[None], fx, fy, cx, cy)
+        inl = ((torch.sum(r * r, dim=-1) < reproj_threshold ** 2) & z_ok
+               & valid[None])
+        finite = torch.all(torch.isfinite(T.reshape(T.shape[0], -1)), dim=1)
+        n = torch.sum(inl, dim=1)
+        return inl, torch.where(finite, n, torch.full_like(n, -1))
+
+    inl, scores = score(T_hyp)
+    w_lo = inl.to(p_w.dtype) * (scores >= sample_size)[:, None]
+    T_lo = pnp_t._dlt_pose(p_w, xn, w_lo)
+    inl_lo, scores_lo = score(T_lo)
+    better = scores_lo > scores
+    T_all = torch.where(better[:, None, None], T_lo, T_hyp)
+    inl = torch.where(better[:, None], inl_lo, inl)
+    scores = torch.maximum(scores, scores_lo)
+    best = torch.argmax(scores)
+    res = ba_t.pose_only_optimize(T_all[best], p_w, uv, inl[best],
+                                  fx, fy, cx, cy)
+    ok = (res.n_inliers >= min_inliers) & (scores[best] >= sample_size)
+    return pnp_t.PnPResult(res.T_cw, res.inlier, res.n_inliers, ok)
+
+
+@pytest.mark.parametrize("case", ["exact", "outliers", "few_valid",
+                                  "generator"])
+def test_pnp_stages_give_the_one_functions_bits(case):
+    """pnp_ransac, composed of its stages (the best taken by
+    index_select), equals the one-function RANSAC bit for bit: pose,
+    inliers, count and ok, with JAX's samples or the generator's."""
+    rng = np.random.default_rng(21)
+    p_w, uv, valid, _ = make_scene(rng, n=120)
+    if case == "outliers":
+        out = rng.choice(len(uv), 40, replace=False)
+        uv[out] += rng.uniform(25, 120, (40, 2)).astype(np.float32)
+    elif case == "few_valid":
+        valid[8:] = False
+    args = (_t(p_w), _t(uv), _t(valid), FX, FY, CX, CY)
+    if case == "generator":
+        got = pnp_t.pnp_ransac(*args, torch.Generator().manual_seed(4))
+        want = _pnp_ransac_one_function(*args,
+                                        torch.Generator().manual_seed(4))
+    else:
+        idx = _t(_jax_sample_idx(valid, jax.random.PRNGKey(8)))
+        got = pnp_t.pnp_ransac(*args, sample_idx=idx)
+        want = _pnp_ransac_one_function(*args, sample_idx=idx)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert bool(got.ok) == (case != "few_valid")
+
+
+@pytest.mark.parametrize("n_valid", [120, 40, 4])
+def test_sample_indices_from_drawn_uniforms(n_valid):
+    """sample_indices given the uniforms draw_uniforms drew equals its own
+    draw from a generator in the same state, and leaves the generator
+    where its own draw does; fewer valid points than a sample fill the
+    rest with invalid ones, as before."""
+    valid = torch.zeros(120, dtype=torch.bool)
+    valid[torch.randperm(120, generator=torch.Generator().manual_seed(1))
+          [:n_valid]] = True
+    g_own, g_drawn = (torch.Generator().manual_seed(6) for _ in range(2))
+    own = pnp_t.sample_indices(valid, 128, 6, g_own)
+    u = pnp_t.draw_uniforms(128, 120, g_drawn)
+    assert u.shape == (128, 120) and u.dtype == torch.float32
+    assert torch.equal(pnp_t.sample_indices(valid, 128, 6, uniforms=u), own)
+    assert torch.equal(g_own.get_state(), g_drawn.get_state())
+    assert int(valid[own].sum(dim=1).min()) == min(n_valid, 6)
+
+
 # ----------------------------------------------------------------------
 # ops/pgo.py
 # ----------------------------------------------------------------------

@@ -34,12 +34,16 @@ from ssvio_tpu.ops import se3 as se3_j
 from ssvio_tpu.system import System as SystemJ
 from ssvio_tpu_torch import frontend as fe_t
 from ssvio_tpu_torch import interop
+from ssvio_tpu_torch import loopclosing as lc_mod
 from ssvio_tpu_torch.loopclosing import LoopClosing as LCT
 from ssvio_tpu_torch.loopclosing import transform_rows
 from ssvio_tpu_torch.map import MapState
+from ssvio_tpu_torch.ops import pnp as pnp_t
 from ssvio_tpu_torch.ops import se3 as se3_t
 from ssvio_tpu_torch.system import System as SystemT
+from ssvio_tpu_torch.utils import profiling
 from test_loopclosing import _small_settings
+from test_torch_keyframe_graph import no_syncs
 from test_torch_loop_geom import _jax_sample_idx
 from test_torch_ops import one_torch_thread  # noqa: F401 (autouse)
 
@@ -774,6 +778,139 @@ def test_complete_loop_parity(jax_pair, case):
     if not events:       # the correction moved the pose onto the truth
         assert np.linalg.norm(se3_t.inverse_np(st.T_cw.numpy())[:, 3]
                               - se3_t.inverse_np(sc["T_true"])[:, 3]) < 0.05
+
+
+# ----------------------------------------------------------------------
+# the verification in stages (VerifyGraphs)
+# ----------------------------------------------------------------------
+
+class _Warns:
+    def _warn(self, msg):
+        pass
+
+
+def _candidates(sc, seed=9):
+    """Four verifications of the scene's database: the revisit against
+    its loop keyframe, against an unrelated row, with another estimate
+    and noisier keypoints, and the revisit again after the database grew
+    (None: _grow first)."""
+    rng = np.random.default_rng(seed)
+    xy, T = _t(sc["feat"]["xy"]), _t(sc["T_est"])
+    xy2 = xy + _t(rng.normal(0, 1.5, xy.shape).astype(np.float32))
+    T2 = _t(se3_t.compose_np(_exp([0.3, -0.2, 0.4, 0.02, 0.0, 0.05]),
+                             sc["T_true"]))
+    return [(CUR_GID, LOOP_GID, xy, T), (CUR_GID, 4, xy, T),
+            (CUR_GID, LOOP_GID, xy2, T2), None, (CUR_GID, LOOP_GID, xy, T)]
+
+
+def _verify_each(lc, cands, staged):
+    out = []
+    for c in cands:
+        if c is None:
+            lc._grow(_Warns())
+        elif staged:
+            out.append(lc._verify(*c))
+        else:
+            out.append(lc._verify_impl(lc.desc_db, lc.desc_valid, lc.lm_has,
+                                       lc.lm_pos, *c))
+    return out
+
+
+@pytest.mark.parametrize("draws", ["generator", "jax_samples"])
+def test_staged_verify_equals_eager(jax_pair, draws):
+    """Several candidates one after another, once op by op
+    (_verify_impl) and once as _complete_loop verifies them (_verify:
+    the stages' VerifyGraphs, run on their buffers on the CPU), the last
+    after _grow, with the generator's draws or JAX's samples
+    (sample_idx_fn): equal pack, best_j and inlier mask, the same
+    generator state after; an accepted and a rejected PnP among them."""
+    lc_j, _ = jax_pair
+    sc = _loop_scene(0.3)
+    cands = _candidates(sc)
+    runs = []
+    for staged in (False, True):
+        lc = _load(lc_j, sc)
+        if draws == "generator":
+            lc.sample_idx_fn = None
+        runs.append((lc, _verify_each(lc, cands, staged)))
+    (lc_e, eager), (lc_g, staged) = runs
+    assert lc_e._graphs is None
+    vg = lc_g._graphs
+    assert not vg.captured
+    assert [g.calls for g in vg.stages] == [len(eager)] * 3
+    assert lc_g.cap == 2 * sc["s"].max_keyframes_db
+    for (p_e, bj_e, in_e), (p_g, bj_g, in_g) in zip(eager, staged):
+        assert torch.equal(p_g, p_e)
+        assert torch.equal(bj_g, bj_e) and bj_g.dtype == torch.int32
+        assert torch.equal(in_g, in_e)
+    assert torch.equal(lc_g._gen.get_state(), lc_e._gen.get_state())
+    packs = [p.numpy() for p, _, _ in eager]
+    assert packs[0][1] == 1.0 and packs[0][0] >= 40
+    assert packs[1][1] == 0.0 and packs[1][0] < 10
+    assert packs[3][1] == 1.0 and packs[3][0] == packs[0][0]
+
+
+def test_verify_stages_read_no_host_value(jax_pair, monkeypatch):
+    """The three stages (the stretches a CUDA graph holds) read nothing
+    from the host, under the dispatch guard of the keyframe graph's
+    tests; the two DLT fits between them run outside it."""
+    lc_j, _ = jax_pair
+    sc = _loop_scene(0.3)
+    lc = _load(lc_j, sc)
+    st = lc_mod.verify_stages(lc.F, lc.S, FX, FY, CX, CY)
+    u = pnp_t.draw_uniforms(lc_mod.N_HYP, lc.F, lc._gen)
+    db = (lc.desc_db[CUR_GID], lc.desc_valid[CUR_GID], lc.desc_db[LOOP_GID],
+          lc.desc_valid[LOOP_GID], lc.lm_has[LOOP_GID], lc.lm_pos[LOOP_GID])
+    xy, T = _t(sc["feat"]["xy"]), _t(sc["T_est"])
+    with no_syncs(monkeypatch):
+        best_j, ok, p_w, xn, idx = st.match(*db, xy, u)
+    T_dlt = pnp_t.minimal_fit(p_w, xn, idx)
+    with no_syncs(monkeypatch):
+        T_hyp, inl, scores, w_lo = st.polish(T_dlt, p_w, xy, ok, idx)
+    T_lo = pnp_t.refit(p_w, xn, w_lo)
+    with no_syncs(monkeypatch):
+        pack, inlier = st.finish(T_lo, T_hyp, inl, scores, p_w, xy, ok, T)
+    assert idx.shape == (lc_mod.N_HYP, lc_mod.SAMPLE)
+    assert pack[1] == 1.0 and int(inlier.sum()) == int(pack[2]) >= 40
+
+
+def test_system_hands_the_verify_graphs_over():
+    """A System's loop closer builds its VerifyGraphs with the vocabulary
+    (none on the CPU is captured, and none counts a capture); a reset,
+    with or without the vocabulary, hands the same graphs to the new loop
+    closer; close() releases them. An eager System verifies op by op and
+    builds none."""
+    s = interop.settings(_scene_settings())
+    st = SystemT(s, enable_backend=True, enable_loop_closing=True,
+                 device="cpu")
+    lc = st.loopclosing
+    assert lc._graphs is None and not lc.eager
+    n = lc.F * lc.S
+    counters = profiling.TRACE.counters
+    lc.desc_db[:4] = torch.randint(-2 ** 31, 2 ** 31 - 1, (4, n, 8),
+                                   dtype=torch.int32,
+                                   generator=torch.Generator().manual_seed(3))
+    lc.desc_valid[:4] = True
+    lc.n = 4
+    before = counters.get(lc_mod.VERIFY_CAPTURES, 0)
+    lc._train_vocab(s.vocab_levels)
+    vg = lc._graphs
+    assert vg is not None and not vg.captured
+    assert counters.get(lc_mod.VERIFY_CAPTURES, 0) == before
+    st.reset(keep_vocab=True)
+    assert st.loopclosing is not lc and st.loopclosing._graphs is vg
+    st.reset()
+    assert st.loopclosing._graphs is vg
+    st.close()
+    assert st.loopclosing._graphs is None
+    assert all(g._in is None for g in vg.stages)
+    eager = SystemT(s, enable_backend=True, enable_loop_closing=True,
+                    device="cpu", eager=True)
+    lc_e = eager.loopclosing
+    assert lc_e.eager
+    lc_e.desc_db, lc_e.desc_valid, lc_e.n = lc.desc_db, lc.desc_valid, 4
+    lc_e._train_vocab(s.vocab_levels)
+    assert lc_e._graphs is None
 
 
 def test_interop_carries_deferred_state():

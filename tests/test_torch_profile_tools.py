@@ -72,6 +72,7 @@ import torch_profile_scaling  # noqa: E402
 import torch_profile_stages  # noqa: E402
 import torch_profile_trace  # noqa: E402
 import torch_profile_transfer  # noqa: E402
+import torch_profile_verify  # noqa: E402
 import torch_tools  # noqa: E402
 
 PYR_TOL, GRAD_TOL = 1e-3, 1e-4          # tests/test_torch_ops.py
@@ -192,7 +193,8 @@ TOOLS = ("torch_profile_stages", "torch_profile_engine",
          "torch_profile_chunk_pipeline", "torch_profile_transfer",
          "torch_profile_lk", "torch_profile_lk_kernels",
          "torch_profile_ingest", "torch_probe_gauge_invariance",
-         "torch_probe_tail_divergence", "torch_ba_trips")
+         "torch_probe_tail_divergence", "torch_ba_trips",
+         "torch_profile_verify")
 
 
 @pytest.mark.parametrize("tool", TOOLS)
@@ -347,6 +349,35 @@ def test_ingest_tool(tiny, monkeypatch):
         assert r[k] > 0
     assert r["describe_x_b_plus_ingest_ms"] == pytest.approx(
         2 * r["describe_ms"] + r["ingest_ms"])
+
+
+def _verify_settings(full=torch_profile_verify.settings):
+    s = full()
+    s.max_features, s.loop_desc_scales = 96, 2
+    return s
+
+
+def test_verify_tool(monkeypatch):
+    """scripts/torch_profile_verify.py at 96 features and 2 octaves on the
+    CPU: every stage of both tables timed with its ops counted, the
+    replayed stages dispatching only their copies and clones, both ways
+    of verifying equal, and the revisit's pose recovered."""
+    monkeypatch.setattr(torch_profile_verify, "settings", _verify_settings)
+    r = torch_profile_verify.main(CPU + ["--reps", "1"])
+    assert r["card"] == "CPU" and not r["captured"]
+    assert (r["features"], r["octaves"], r["hypotheses"]) == (96, 2, 128)
+    assert list(r["stages_eager"]) == ["match", "sampling", "dlt_minimal",
+                                       "polish", "dlt_refit", "lo_pose_only"]
+    assert list(r["stages_graphed"]) == ["copy_in", "graph_match",
+                                         "dlt_minimal", "graph_polish",
+                                         "dlt_refit", "graph_finish"]
+    for table in (r["stages_eager"], r["stages_graphed"]):
+        for v in table.values():
+            assert v["wall_ms"] > 0 and v["device_ms"] is None
+    ops = {k: v["ops"] for k, v in r["stages_eager"].items()}
+    assert ops["lo_pose_only"] > 5000 and ops["polish"] > 1000
+    assert r["equal"] and r["pnp_ok"] and r["pose_error"] < 0.02
+    assert r["n_inliers"] >= 40
 
 
 # ------------------------------------------------------ stages against JAX
