@@ -200,7 +200,7 @@ the graphs' memory pools).
    the ablation over PROFILE_FRAMES frames, eager (its full variant's
    statuses equal to run_step's, positions within its POS_TOL_M); each
    stage alone (torch_profile_stages: every LK stage launches kernel #1
-   once a level: lk.track 3, _track_step 2 x 3, _keyframe_step 2 x 4, the
+   once a level: lk.track 3, _track_step 2 x 3, _keyframe_core 2 x 4, the
    tracking graph's replay 2 x 3, the keyframe branch eager and replayed
    2 x 4; the LM's and the local BA's graphs none), one steady keyframe
    frame alone traced (its busy share in (0, 1], kernel #1's events equal
@@ -1573,12 +1573,12 @@ def phase_place_recognition(s: Settings, dev, card: str) -> dict:
         sys_.run_step(L[i], R[i], i / s.fps)
         ms.append(1e3 * (time.perf_counter() - t))
         after.append(sys_.status)
-        if len(sys_.keyframes) > len(kfs):
+        if len(sys_.records.keyframes) > len(kfs):
             feat, m = sys_.feat, sys_.map
             slot = torch.clamp(feat.lm_slot, min=0).long()
             has_lm = feat.valid & (feat.lm_slot >= 0) & m.lm_valid[slot] \
                 & (m.lm_gid[slot] == feat.lm_gid)
-            kfs.append(dict(rec=sys_.keyframes[-1], frame=i,
+            kfs.append(dict(rec=sys_.records.keyframes[-1], frame=i,
                             img=sys_.last_pyr.levels[0].clone(),
                             xy=feat.xy.clone(), valid=feat.valid.clone(),
                             has_lm=has_lm, lm_pos=m.lm_pos[slot].clone()))
@@ -1696,7 +1696,8 @@ def phase_place_recognition(s: Settings, dev, card: str) -> dict:
     gid_ix = {kf["rec"]["gid"]: k for k, kf in enumerate(kfs)}
     T_kf = np.stack([kf["rec"]["T_cw"] for kf in kfs]).astype(np.float32)
     centres = np.stack([poses[kf["frame"], :, 3] for kf in kfs])
-    edges = [(gid_ix[g], gid_ix[gp], Z) for gp, g, Z in sys_.kf_rel_edges]
+    edges = [(gid_ix[g], gid_ix[gp], Z)
+             for gp, g, Z in sys_.records.odometry_edges]
     rng = np.random.default_rng(8)
     noise = rng.normal(0, PGO_DRIFT, (len(edges), 6)).astype(np.float32)
     noise[:, 3:] *= 0.3
@@ -1834,7 +1835,7 @@ def _kf_metrics(sys_, poses) -> dict:
     """bench.py:334-346: the keyframe ATE, and the end drift with the
     gauge fixed on the first quarter of the keyframes."""
     _, est = sys_.keyframe_trajectory()
-    gt = poses[[k["frame_id"] for k in sys_.keyframes]]
+    gt = poses[[k["frame_id"] for k in sys_.records.keyframes]]
     m = ate.keyframe_drift(est[:, :, 3], gt[:, :, 3])
     return dict(kf_ate_m=m["ate_rmse_m"], end_drift_m=m["end_drift_m"])
 
@@ -1976,7 +1977,7 @@ def phase_loop_system(dev, card: str) -> dict:
         n_reloc.append(sys_on.stats.get("n_relocalizations", 0))
     # the truth in the System's gauge: its world frame is the camera of
     # its first keyframe (the frame it initialised at)
-    f0 = sys_on.keyframes[0]["frame_id"]
+    f0 = sys_on.records.keyframes[0]["frame_id"]
     g0 = np.linalg.inv(np.vstack([poses[f0], [0.0, 0.0, 0.0, 1.0]]))
     err = [float(np.linalg.norm(sys_on.trajectory[-5 + j][2][:, 3]
                                 - g0[:3, :3] @ poses[k + j][:, 3]

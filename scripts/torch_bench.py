@@ -231,7 +231,7 @@ def _loop_pass(sys_: System, L, R, poses, n: int, chunk: int) -> dict:
     run_pass(sys_, L, R, n, chunk)
     wall = time.perf_counter() - t0
     _, est = sys_.keyframe_trajectory()
-    gt = poses[[k["frame_id"] for k in sys_.keyframes]]
+    gt = poses[[k["frame_id"] for k in sys_.records.keyframes]]
     return dict(ate.keyframe_drift(est[:, :, 3], gt[:, :, 3]),
                 n_keyframes=len(gt), fps=n / wall)
 

@@ -184,7 +184,7 @@ def main(argv=None) -> dict:
         traj, res, system = run_pass(args.out, settings, args.chunk, loop_on,
                                      tag, device)
         # the keyframe ATE needs 3 keyframes (a run may stay INITING)
-        kfs = system.keyframes
+        kfs = system.records.keyframes
         r = (evaluate(args.out, traj) if len(kfs) >= 3
              else {"n_keyframes": len(kfs)})
         r.update(init_frame=kfs[0]["frame_id"] if kfs else None,

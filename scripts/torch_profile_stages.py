@@ -7,11 +7,11 @@ two random images, 512 feature positions, 8192 landmarks, 512 pixel
 observations) at its settings (Settings() with 512 features and 8192
 landmarks: 1241x376 padded to 1248x384), it times `_build_pyramid`,
 `_track_step`, `lk.track` forward, `ba.pose_only_optimize`,
-`_keyframe_step`, `fast.detect_grid` and `local_ba` (on the window the
-keyframe step leaves), each called op by op, then the two branches as the
-engine runs them by default: `Frontend.track_frame` (undistortion,
-pyramid, `_track_step`) replayed from its CUDA graph (graphs.TrackGraph)
-and the keyframe branch of a steady keyframe frame
+`_keyframe_core` (the keyframe step), `fast.detect_grid` and `local_ba`
+(on the window the keyframe step leaves), each called op by op, then the
+two branches as the engine runs them by default: `Frontend.track_frame`
+(undistortion, pyramid, `_track_step`) replayed from its CUDA graph
+(graphs.TrackGraph) and the keyframe branch of a steady keyframe frame
 (`Engine.keyframe_branch`: the right pyramid, `_keyframe_core`, the
 5 x 10 local BA, whose graph skips the rounds after the inlier-ratio
 flag) eagerly and replayed from its graph
@@ -105,7 +105,7 @@ def stages(front: fe.Frontend, inp: dict) -> "OrderedDict[str, callable]":
     pyr = front._build_pyramid(t["img"])
     pyr2 = front._build_pyramid(t["img2"])
     occ = torch.zeros((front.h, front.w), dtype=torch.bool, device=dev)
-    m2 = front._keyframe_step(pyr, pyr2, feat, eye, m)[1]
+    m2 = front._keyframe_core(pyr, pyr2, feat, eye, m)[1]
     prob = mapmod.ba_problem_from_map(m2)
     track_args = (pyr, feat, eye, eye, m.lm_pos, m.lm_valid, m.lm_gid)
     track_graph = graphs.TrackGraph(front, t["img2"], *track_args)
@@ -134,7 +134,7 @@ def stages(front: fe.Frontend, inp: dict) -> "OrderedDict[str, callable]":
         ("pose_only_optimize", lambda: ba.pose_only_optimize(
             eye, t["lm_pos"][:n], t["uv"], feat.valid, front._fx, front._fy,
             front._cx, front._cy)),
-        ("keyframe_step", lambda: front._keyframe_step(pyr, pyr2, feat, eye,
+        ("keyframe_step", lambda: front._keyframe_core(pyr, pyr2, feat, eye,
                                                        m)),
         ("fast.detect_grid", lambda: fast.detect_grid(
             pyr.levels[0], max_kps=n, cell=s.grid_cell,

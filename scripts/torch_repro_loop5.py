@@ -88,7 +88,7 @@ def run(sys_, L, R, CH, pipelined=True, timeline=False):
 
 def evaluate(sys_, poses):
     _, est = sys_.keyframe_trajectory()
-    fids = [k["frame_id"] for k in sys_.keyframes]
+    fids = [k["frame_id"] for k in sys_.records.keyframes]
     gt = poses[fids]
     stats = ate.ape_translation(est[:, :, 3], gt[:, :, 3])
     q = max(4, len(fids) // 4)
@@ -113,7 +113,7 @@ def _probe(sys_, poses):
     orig_complete = lc._complete_loop
 
     def rec_err(gid):
-        rec = sys_._rec_by_gid.get(gid)
+        rec = sys_.records.by_gid.get(gid)
         if rec is None:
             return float("nan")
         T_wc = se3.inverse_np(rec["T_cw"])

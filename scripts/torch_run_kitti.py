@@ -247,13 +247,13 @@ def run(system: System, args) -> dict:
     print(f"[run_kitti] trajectory -> {args.save_traj}")
 
     res = None
-    if gt is not None and not system.keyframes:
+    if gt is not None and not system.records.keyframes:
         print("[run_kitti] ATE: no keyframes (the run never initialised)")
     elif gt is not None:
         from ssvio_tpu_torch.eval import ate
         _, est = system.keyframe_trajectory()
         # associate keyframes to gt rows via frame ids
-        kf_frames = [k["frame_id"] for k in system.keyframes]
+        kf_frames = [k["frame_id"] for k in system.records.keyframes]
         gt_kf = gt[[f for f in kf_frames if f < len(gt)]]
         est = est[:len(gt_kf)]
         res = ate.ape_translation(est[:, :, 3], gt_kf[:, :, 3])

@@ -30,6 +30,7 @@ class _FakeSystem:
     def __init__(self):
         self.trajectory = []
         self.keyframes = []
+        self.last_stereo = None
         self.map = type("M", (), {})()
         self.map.lm_pos = torch.zeros((1, 3), dtype=torch.float32)
         self.map.lm_valid = torch.zeros((1,), dtype=torch.bool)

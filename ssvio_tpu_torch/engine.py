@@ -126,24 +126,20 @@ class _Frame(NamedTuple):
 
 
 # how a steady keyframe's local BA runs: replayed in the keyframe graph,
-# whose conditional nodes skip the rounds after the ratio flag; op by op
-# as the fixed trip, every round and step run (eagerly, and uncaptured on
-# the CPU); or over the mesh, its loops broken on flags the host reads
-BA_MODES = ("graph", "fixed trip", "mesh")
+# whose conditional nodes skip the rounds after the ratio flag; or op by
+# op as the fixed trip, every round and step run (eagerly, uncaptured on
+# the CPU, and over a mesh)
+BA_MODES = ("graph", "fixed trip")
 
 
-def ba_work(mode: str, rounds: int, steps: int) -> Tuple[int, int]:
+def ba_work(mode: str, rounds: int) -> Tuple[int, int]:
     """(LM steps run, rounds skipped) of a local BA that ran in `mode`
-    (BA_MODES) and whose loops took `rounds` rounds and `steps` LM
-    steps: a graph runs each of its rounds whole, a fixed trip all
-    LOCAL_BA_ROUNDS, a mesh BA its steps."""
-    skipped = ba.LOCAL_BA_ROUNDS - rounds
+    (BA_MODES) and whose loops took `rounds` rounds: a graph runs each of
+    those rounds whole, a fixed trip all LOCAL_BA_ROUNDS."""
     if mode == "graph":
-        return rounds * ba.LOCAL_BA_ITERS, skipped
+        return rounds * ba.LOCAL_BA_ITERS, ba.LOCAL_BA_ROUNDS - rounds
     if mode == "fixed trip":
         return ba.LOCAL_BA_ROUNDS * ba.LOCAL_BA_ITERS, 0
-    if mode == "mesh":
-        return steps, skipped
     raise ValueError(f"a BA mode of {BA_MODES}, not {mode!r}")
 
 
@@ -161,8 +157,9 @@ class ChunkTiming:
     chunk `ba.lm_steps_needed` (the LM steps its local BAs' loops took,
     `Engine.ba_trips`, read in one copy), `ba.lm_steps_run` (the steps
     they ran) and `ba.rounds_skipped` (the rounds of LOCAL_BA_ROUNDS they
-    did not run), by the mode each BA ran in (`BA_MODES`, `ba_work`). On
-    the CPU no event is made; the LM steps are read all the same."""
+    did not run), by the mode each BA ran in (`BA_MODES`, `ba_work`; a
+    mesh BA runs the fixed trip). On the CPU no event is made; the LM
+    steps are read all the same."""
 
     def __init__(self, device: torch.device):
         self.device = device
@@ -212,8 +209,9 @@ class ChunkTiming:
             profiling.release(self.device, used + [self.end])
         if self._trips_host is not None:
             trips = self._trips_host.tolist()
-            work = [ba_work(mode, *trip)
-                    for trip, mode in zip(trips, self.modes, strict=True)]
+            work = [ba_work(mode, rounds)
+                    for (rounds, _), mode in zip(trips, self.modes,
+                                                 strict=True)]
             rec.add("ba.lm_steps_needed", float(sum(n for _, n in trips)))
             rec.add("ba.lm_steps_run", float(sum(w[0] for w in work)))
             rec.add("ba.rounds_skipped", float(sum(w[1] for w in work)))
@@ -242,7 +240,7 @@ class Engine:
     `ba_trips` logs, for the tools, the rounds and LM steps of each local
     BA the engine ran (device [2] int32, the last 1024): the steps JAX's
     `while_loop`s take. The keyframe graph runs those rounds, 10 steps
-    each; an eager or CPU BA runs 5 x 10 (`ba_mode`, `ba_work`)."""
+    each; an eager, CPU or mesh BA runs 5 x 10 (`ba_mode`, `ba_work`)."""
 
     def __init__(self, frontend: fe.Frontend, enable_backend: bool,
                  mesh=None, loop_desc: bool = False, eager: bool = False):
@@ -404,8 +402,6 @@ class Engine:
     @property
     def ba_mode(self) -> str:
         """How a steady keyframe's local BA runs (BA_MODES)."""
-        if self.dist is not None:
-            return "mesh"
         return "graph" if self.keyframe_path == "graph" else "fixed trip"
 
     def close(self) -> None:

@@ -322,15 +322,3 @@ class Frontend:
         return (feat3, m3, kf_slot, kf_gid,
                 torch.sum(created, dtype=torch.int32),
                 torch.sum(has_r, dtype=torch.int32))
-
-    def _keyframe_step(self, pyr_l: Pyr, pyr_r: Pyr, feat: FeatState, T_cw,
-                       m: mapmod.MapState, budget: int | None = None):
-        """`_keyframe_core` with its four counts read back as ints (the
-        relocalization's keyframe, and the tests).
-
-        Returns (feat', map', kf_slot, kf_gid, n_landmarks_created,
-        n_stereo)."""
-        feat3, m3, kf_slot, kf_gid, n_created, n_stereo = self._keyframe_core(
-            pyr_l, pyr_r, feat, T_cw, m, budget=budget)
-        return (feat3, m3, int(kf_slot), int(kf_gid), int(n_created),
-                int(n_stereo))

@@ -13,10 +13,10 @@ the returned map).
 No function on the keyframe path reads a device value on the host, so the
 keyframe branch is captured into a CUDA graph (`graphs.KeyframeGraph`):
 the window slot and keyframe id come out as device scalars
-(`insert_keyframe_device`; `insert_keyframe` is the int wrapper), and
-every scatter has a fixed shape. JAX's scatters route a dead lane out of
-range with `mode="drop"`; here a dead lane writes a scratch row one past
-the end of a copy of the table, which is then cut off (`_put_rows`). A
+(`insert_keyframe_device`), and every scatter has a fixed shape. JAX's
+scatters route a dead lane out of range with `mode="drop"`; here a dead
+lane writes a scratch row one past the end of a copy of the table, which
+is then cut off (`_put_rows`). A
 dead lane must never go to a clamped real row: with repeated indices a
 non-accumulating `index_put_` on CUDA has no defined winner, and a dead
 lane could overwrite a real observation. Duplicate live indices have no
@@ -149,16 +149,6 @@ def insert_keyframe_device(m: MapState, T_cw: torch.Tensor,
                       obs_uv=obs_uv, obs_valid=obs_valid,
                       lm_valid=m.lm_valid & lm_active,
                       next_kf_gid=kf_gid + 1), slot, kf_gid
-
-
-def insert_keyframe(m: MapState, T_cw: torch.Tensor,
-                    feat_lm_slot: torch.Tensor, feat_uv_l: torch.Tensor,
-                    feat_uv_r: torch.Tensor, feat_has_r: torch.Tensor,
-                    feat_valid: torch.Tensor) -> Tuple[MapState, int, int]:
-    """insert_keyframe_device with the slot and gid read back as ints."""
-    m2, slot, gid = insert_keyframe_device(m, T_cw, feat_lm_slot, feat_uv_l,
-                                           feat_uv_r, feat_has_r, feat_valid)
-    return m2, int(slot), int(gid)
 
 
 def add_landmarks(m: MapState, kf_slot, kf_gid,

@@ -28,10 +28,9 @@ finiteness test then rejects the step.
 problem's landmark axis is this rank's shard (`parallel/dist_ba.py`), and
 the sums JAX takes with `psum`/`pmax`/`pmin` over the mesh axis are
 `torch.distributed.all_reduce`s over the mesh's process group, at the same
-places. That path is driven from the host over its process group and
-keeps the loops that read their stop flags on the host (`.item()`), each
-computed from reduced values, so all ranks leave both loops on the same
-iteration.
+places. It runs the same fixed trip op by op: its stop flags come from
+reduced values, so every rank freezes its state on the same step and
+makes the same all_reduce calls.
 """
 
 from __future__ import annotations
@@ -473,20 +472,20 @@ def local_ba(prob: LocalBAProblem, fx, fy, cx, cy, baseline,
     far from the optimum (up to ~47% above it in the window's cost, on
     the card), where the reference stops.
 
-    Without a mesh both loops are fixed trips with no host read: an LM
-    step whose stop flag is set leaves T, lp, lam, nu and the blocks as
-    they were, and a round after the ratio flag leaves the poses, the
-    landmarks and the inlier edges, which is the state JAX's two
-    `while_loop`s leave (ssvio_tpu/ops/ba.py:516, :546). Op by op every
-    round runs; captured into a CUDA graph, the rounds after the first
-    are conditional nodes on the ratio flag, and a replay skips those
-    after it (`_if_live`), to the same state bit for bit.
+    Both loops are fixed trips with no host read: an LM step whose stop
+    flag is set leaves T, lp, lam, nu and the blocks as they were, and a
+    round after the ratio flag leaves the poses, the landmarks and the
+    inlier edges, which is the state JAX's two `while_loop`s leave
+    (ssvio_tpu/ops/ba.py:516, :546). Op by op every round runs; captured
+    into a CUDA graph, the rounds after the first are conditional nodes
+    on the ratio flag, and a replay skips those after it (`_if_live`), to
+    the same state bit for bit.
 
     `mesh` (`parallel.dist_ba.Mesh`): `prob`'s landmark fields are this
-    rank's shard and every rank of the mesh calls local_ba together. The
-    poses and the inlier ratio come out equal on every rank; lm_pos,
-    obs_valid and chi2 are the shard's. Its loops break on flags read on
-    the host."""
+    rank's shard and every rank of the mesh calls local_ba together, op
+    by op: all LOCAL_BA_ROUNDS x LOCAL_BA_ITERS steps. The poses and the
+    inlier ratio come out equal on every rank; lm_pos, obs_valid and chi2
+    are the shard's."""
     dev = prob.lm_pos.device
     bl = (baseline.to(device=dev, dtype=torch.float32)
           if torch.is_tensor(baseline) else
@@ -494,7 +493,6 @@ def local_ba(prob: LocalBAProblem, fx, fy, cx, cy, baseline,
     pose_free = (prob.kf_valid & ~prob.kf_fixed).to(torch.float32)
     lm_has_obs = torch.any(prob.obs_valid.flatten(1), dim=1)
     lm_free = (prob.lm_valid & ~prob.lm_fixed & lm_has_obs).to(torch.float32)
-    fixed_trip = mesh is None
 
     def lm_inner(kf_T_cw, lm_pos, edge_active, n_iters, live_round):
         """One round's LM: (poses, landmarks, steps its loop would take)."""
@@ -522,8 +520,8 @@ def local_ba(prob: LocalBAProblem, fx, fy, cx, cy, baseline,
                 # the landmark term of the gain ratio over every shard
                 # (JAX's psum), and the stop test's step and finiteness
                 # (pmax / pmin; the MIN as a MAX of the negation, packed):
-                # the pose terms too, so that the flag the host reads is
-                # the same on every rank whatever each rank's solve gave
+                # the pose terms too, so that the stop flag is the same on
+                # every rank whatever each rank's solve gave
                 pred_l, = _all_reduce(mesh, dist.ReduceOp.SUM, pred_l)
                 step, not_finite = _all_reduce(
                     mesh, dist.ReduceOp.MAX, step, (~finite).to(step.dtype))
@@ -545,8 +543,6 @@ def local_ba(prob: LocalBAProblem, fx, fy, cx, cy, baseline,
             nu = torch.where(live, nu_next, nu)
             n_steps = n_steps + live.to(torch.int32)
             live = live & ~((step < 1e-5) & finite)
-            if not fixed_trip and not bool(live.item()):
-                break
         return T, lp, n_steps
 
     base_active = prob.obs_valid & prob.lm_valid[:, None, None] \
@@ -591,12 +587,7 @@ def local_ba(prob: LocalBAProblem, fx, fy, cx, cy, baseline,
             old.copy_(new)
 
     for _ in range(max_rounds - 1):
-        if fixed_trip:
-            _if_live(state[-1], next_round)
-        elif bool(state[-1].item()):
-            state = round_(state)
-        else:
-            break
+        _if_live(state[-1], next_round)
     kf_T_cw, lm_pos, _, n_rounds, n_steps, _ = state
 
     r, _, z_ok = _ba_residuals(prob, kf_T_cw, lm_pos, fx, fy, cx, cy, bl)

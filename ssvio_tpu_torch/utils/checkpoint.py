@@ -31,14 +31,7 @@ def save_checkpoint(system, path: str) -> None:
         "status": int(system.status),
         "frame_id": int(system.frame_id),
         "stats": {k: v for k, v in system.stats.items() if k != "track_ms"},
-        "keyframes": [
-            {"gid": int(k["gid"]), "frame_id": int(k["frame_id"]),
-             "timestamp": float(k["timestamp"]),
-             "T_cw": _np(k["T_cw"]).tolist()}
-            for k in system.keyframes],
-        "kf_rel_edges": [
-            {"a": int(a), "b": int(b), "Z": _np(Z).tolist()}
-            for a, b, Z in system.kf_rel_edges],
+        **system.records.state(),
     }
     arrays = {f: _np(v) for f, v in zip(MapState._fields, system.map)}
     feat = system.feat
@@ -81,17 +74,7 @@ def load_checkpoint(system, path: str) -> None:
     system.status = int(meta["status"])
     system.frame_id = int(meta["frame_id"])
     system.stats.update(meta["stats"])
-    system.keyframes = [
-        {"gid": k["gid"], "frame_id": k["frame_id"],
-         "timestamp": k["timestamp"],
-         "T_cw": np.asarray(k["T_cw"], np.float32)}
-        for k in meta["keyframes"]]
-    # the gid index of the same records, so BA refreshes and loop closing
-    # reach the loaded keyframes (the JAX package leaves it empty)
-    system._rec_by_gid = {k["gid"]: k for k in system.keyframes}
-    system.kf_rel_edges = [
-        (e["a"], e["b"], np.asarray(e["Z"], np.float32))
-        for e in meta["kf_rel_edges"]]
+    system.records.load(meta)
     system.trajectory = [
         (float(ts), int(f), np.asarray(T))
         for ts, f, T in zip(z["trajectory_ts"], z["trajectory_fid"],

@@ -81,13 +81,12 @@ def plot_stereo(ax_l, ax_r, system):
     for ax in (ax_l, ax_r):
         ax.set_xticks([])
         ax.set_yticks([])
-    if getattr(system, "last_stereo", None) is None:
+    if system.last_stereo is None:
         ax_l.set_visible(False)
         ax_r.set_visible(False)
         return
     img_l, img_r = system.last_stereo
-    rw = getattr(system.frontend, "rw", None)
-    rh = getattr(system.frontend, "rh", None)
+    rw, rh = system.frontend.rw, system.frontend.rh
     L = _host(img_l).astype(np.float32)[:rh, :rw]
     ax_l.imshow(L, cmap="gray", vmin=0, vmax=255)
     xy = _host(system.feat.xy)

@@ -54,10 +54,12 @@ def _port(s):
 
 
 def _records(sys_):
-    return ([(k["gid"], k["frame_id"], k["timestamp"]) for k in sys_.keyframes],
-            np.stack([np.asarray(k["T_cw"]) for k in sys_.keyframes]),
-            [(a, b) for a, b, _ in sys_.kf_rel_edges],
-            np.stack([np.asarray(z) for _, _, z in sys_.kf_rel_edges]))
+    recs = sys_.records
+    return ([(k["gid"], k["frame_id"], k["timestamp"])
+             for k in recs.keyframes],
+            np.stack([np.asarray(k["T_cw"]) for k in recs.keyframes]),
+            [(a, b) for a, b, _ in recs.odometry_edges],
+            np.stack([np.asarray(z) for _, _, z in recs.odometry_edges]))
 
 
 def test_port_resume_is_the_continuous_run(seq, tmp_path):
@@ -72,7 +74,7 @@ def test_port_resume_is_the_continuous_run(seq, tmp_path):
     checkpoint.load_checkpoint(resumed, p)
     assert resumed.frame_id == first.frame_id
     assert resumed.stats["n_keyframes"] == first.stats["n_keyframes"]
-    assert resumed._rec_by_gid.keys() == first._rec_by_gid.keys()
+    assert resumed.records.by_gid.keys() == first.records.by_gid.keys()
     _steps(resumed, L, R, range(SAVE_AT, N_FRAMES))
     assert resumed.status == cont.status
     assert resumed.stats == cont.stats
@@ -131,7 +133,7 @@ def test_port_checkpoint_continues_in_jax(seq, jax_run, tmp_path):
     est_t = _steps(port, L, R, range(SAVE_AT))
     p = str(tmp_path / "port.npz")
     checkpoint.save_checkpoint(port, p)
-    saved = (port.frame_id, port.status, len(port.keyframes))
+    saved = (port.frame_id, port.status, len(port.records.keyframes))
     est_t += _steps(port, L, R, range(SAVE_AT, N_FRAMES))
     j = SystemJ(s, enable_loop_closing=False)
     checkpoint_j.load_checkpoint(j, p)

@@ -106,16 +106,16 @@ def _same_run(a, st_a, b, st_b):
     assert st_b == st_a
     assert b.status == a.status
     assert b.stats == a.stats
-    assert [k["frame_id"] for k in b.keyframes] == \
-        [k["frame_id"] for k in a.keyframes]
+    assert [k["frame_id"] for k in b.records.keyframes] == \
+        [k["frame_id"] for k in a.records.keyframes]
     _, ta = a.frame_trajectory()
     _, tb = b.frame_trajectory()
     assert len(tb) == len(ta)
     np.testing.assert_allclose(tb, ta, atol=POS_ATOL_M)
-    kb = np.stack([k["T_cw"] for k in b.keyframes])
-    ka = np.stack([k["T_cw"] for k in a.keyframes])
+    kb = np.stack(b.records.poses())
+    ka = np.stack(a.records.poses())
     np.testing.assert_allclose(kb, ka, atol=POS_ATOL_M)
-    assert len(b.kf_rel_edges) == len(b.keyframes) - 1
+    assert len(b.records.odometry_edges) == len(b.records.keyframes) - 1
 
 
 def test_run_chunk_matches_run_step(seq, per_frame):

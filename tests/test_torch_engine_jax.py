@@ -36,7 +36,7 @@ def test_run_chunk_matches_jax_package():
     assert st_t == st_j
     assert fe_t.TRACKING_BAD in st_t and fe_t.LOST not in st_t
     assert sys_t.stats["n_keyframes"] == sys_j.stats["n_keyframes"] >= 2
-    assert [k["frame_id"] for k in sys_t.keyframes] == \
+    assert [k["frame_id"] for k in sys_t.records.keyframes] == \
         [k["frame_id"] for k in sys_j.keyframes]
     _, tj = sys_j.frame_trajectory()
     _, tt = sys_t.frame_trajectory()

@@ -248,7 +248,7 @@ def _map_case(seed, fill, dead_rows):
                                             (4, True)])
 def test_device_scalar_map_inserts_match_jax(fill, dead_rows):
     """insert_keyframe_device and add_landmarks (device slot and gid)
-    against JAX's, field for field; the int wrapper agrees."""
+    against JAX's, field for field."""
     m, f, T_new = _map_case(501 + fill, fill, dead_rows)
     mj = map_j.MapState(**{k: jnp.asarray(v) for k, v in m.items()})
     mt = interop.map_state(m)
@@ -260,7 +260,6 @@ def test_device_scalar_map_inserts_match_jax(fill, dead_rows):
     assert slot_t.shape == gid_t.shape == ()
     assert slot_t.dtype == gid_t.dtype == torch.int32
     assert (int(slot_t), int(gid_t)) == (int(slot_j), int(gid_j))
-    assert map_t.insert_keyframe(mt, *args_t)[1:] == (int(slot_j), int(gid_j))
     _assert_maps_equal(mt2, mj2)
     _assert_maps_equal(mt, mj)            # the input map untouched
 
@@ -341,7 +340,7 @@ def test_the_dispatch_guard_catches_what_cpp_reads(monkeypatch):
     args = _insert_args()
     for bad in (lambda: x[torch.argmin(x)], lambda: x[x > 2],
                 lambda: torch.tensor(2.0),
-                lambda: map_t.insert_keyframe(*args)):
+                lambda: int(map_t.insert_keyframe_device(*args)[1])):
         with no_syncs(monkeypatch), pytest.raises(HostRead):
             bad()
     with no_syncs(monkeypatch):
@@ -460,7 +459,7 @@ def test_run_step_reads_a_keyframe_record_once(sequence, monkeypatch):
             break
     assert c.reads == ["__int__", "cpu", "numpy", "cpu", "numpy"]
     assert sys_.stats["n_ba"] == 1
-    rec = sys_.keyframes[-1]
+    rec = sys_.records.keyframes[-1]
     assert rec["gid"] == int(sys_.map.kf_gid.max())
 
 
@@ -502,9 +501,8 @@ def test_static_buffer_path_equals_eager(sequence, chunk, loop):
     assert got.stats == ref.stats and ref.stats["n_ba"] == n_steady >= 2
     assert torch.equal(T, T_ref)
     assert all(torch.equal(a, b) for a, b in zip(d, d_ref))
-    assert [r["gid"] for r in got.keyframes] == \
-        [r["gid"] for r in ref.keyframes]
-    for a, b in zip(got.keyframes, ref.keyframes):
+    assert got.records.gids() == ref.records.gids()
+    for a, b in zip(got.records.keyframes, ref.records.keyframes):
         np.testing.assert_array_equal(a["T_cw"], b["T_cw"])
     assert not ref._engine.kf_graphs
     # every steady keyframe went through the graph's buffers, and each

@@ -111,7 +111,7 @@ def test_mm_slice_statuses_and_keyframes_match(runs):
     assert t["status"][0] == fe_t.TRACKING_GOOD
     assert t["status"][-1] == fe_t.TRACKING_BAD      # a steady keyframe
     assert fe_t.LOST not in t["status"]
-    assert [k["frame_id"] for k in t["sys"].keyframes] == \
+    assert [k["frame_id"] for k in t["sys"].records.keyframes] == \
         [k["frame_id"] for k in j["sys"].keyframes]
 
 

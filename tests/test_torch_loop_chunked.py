@@ -70,13 +70,13 @@ def test_loop_correction_through_chunked_path(monkeypatch):
     assert sys_.stats["n_loops"] >= 1
     assert sys_.stats.get("n_fused", 0) > 0
     ts, est = sys_.keyframe_trajectory()
-    gids = [k["frame_id"] for k in sys_.keyframes]
+    gids = [k["frame_id"] for k in sys_.records.keyframes]
     err_end = float(np.linalg.norm(est[-1][:, 3] - poses[gids][-1][:, 3]))
     assert peak > 2.0, peak
     assert err_end < max(2.5, 0.5 * peak), (err_end, peak)
     # every correction was recorded as a gauge event, and the records of
     # the re-gauged chunks stay consistent with their odometry edges
-    assert len(sys_._gauge_events) == len(corrected)
+    assert sys_.records.gauge_index() == len(corrected)
     assert np.all(np.isfinite(est))
     # the recorder: a correction inside its verification, its PGO inside it
     tr = profiling.TRACE

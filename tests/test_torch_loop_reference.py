@@ -32,6 +32,7 @@ from benchmark.test_bench_harness import \
 from ssvio_tpu_torch.config import Settings
 from ssvio_tpu_torch.loopclosing import LoopClosing
 from ssvio_tpu_torch.ops import pgo
+from ssvio_tpu_torch.records import KeyframeRecords
 from ssvio_tpu_torch.utils import profiling
 from test_torch_ops import one_torch_thread  # noqa: F401 (autouse)
 
@@ -153,17 +154,17 @@ class _Records:
     """The host side of a System as `_pose_graph_optimize` reads it."""
 
     def __init__(self, prob, n):
-        self.keyframes = [dict(gid=100 + k, T_cw=prob.poses[k].numpy())
-                          for k in range(n)]
-        self.kf_rel_edges = [(100 + k, 101 + k, np.eye(3, 4, dtype=np.float32))
-                             for k in range(n - 1)]
+        self.records = KeyframeRecords()
+        for k in range(n):
+            self.records.add(100 + k, 0.0, prob.poses[k].numpy(), k,
+                             odometry_edge=False)
+        self.records.odometry_edges = [
+            (100 + k, 101 + k, np.eye(3, 4, dtype=np.float32))
+            for k in range(n - 1)]
         self.active = [100 + k for k in range(n - WINDOW, n)]
 
     def active_gids(self):
         return self.active
-
-    def on_pose_graph_updated(self):
-        pass
 
 
 def test_pgo_span_and_counters_hold_the_problem_sizes(monkeypatch):

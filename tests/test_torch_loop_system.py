@@ -48,11 +48,15 @@ def _trained_at(lc):
 
 
 def _summary(sys_, statuses):
+    """The run's outcome, of a port System or the JAX package's (whose
+    records are its `keyframes`)."""
     lc = sys_.loopclosing
     _, est = sys_.frame_trajectory()
+    kfs = (sys_.records.keyframes if hasattr(sys_, "records")
+           else sys_.keyframes)
     return dict(status=list(statuses), est=est,
-                kf_gids=[k["gid"] for k in sys_.keyframes],
-                kf_frames=[k["frame_id"] for k in sys_.keyframes],
+                kf_gids=[k["gid"] for k in kfs],
+                kf_frames=[k["frame_id"] for k in kfs],
                 n=lc.n, db_gid=lc.db_gid[:lc.n].copy(),
                 trained_at=list(lc.trained_at),
                 vocab=lc.vocab is not None, events=list(lc.events))
@@ -151,8 +155,8 @@ def test_relocalization_recovers_from_lost(scene, port_step):
     err = np.linalg.norm(sys_.trajectory[-1][2][:, 3] - poses[k][:, 3])
     assert err < 0.5, f"relocalized pose off by {err:.3f} m"
     # the relocalized keyframe has no odometry edge to the lost one
-    g = sys_.keyframes[-1]["gid"]
-    assert all(b != g for _, b, _ in sys_.kf_rel_edges)
+    g = sys_.records.gids()[-1]
+    assert all(b != g for _, b, _ in sys_.records.odometry_edges)
     for i in range(k + 1, k + 5):
         sys_.run_step(L[i], R[i], 21.0 + i * 0.1)
     assert sys_.status != fe_t.LOST
@@ -190,13 +194,13 @@ def test_reset_keeps_or_drops_the_vocabulary(scene):
             .astype(np.uint32) for _ in range(3)]
     vocab = bow_t.train(docs, k=s.vocab_k, levels=2, seed=7)
     sys_.loopclosing.vocab, sys_.loopclosing._vocab_levels = vocab, 2
-    sys_._gauge_events.append(np.eye(3, 4, dtype=np.float32))
+    sys_.records.add_gauge_event(np.eye(3, 4, dtype=np.float32))
     sys_._add_health(50.0)
     sys_.reset(keep_vocab=True)
     lc = sys_.loopclosing
     assert lc.vocab is vocab and lc._vocab_levels == 2 and lc.n == 0
     assert tuple(lc.bow_db.shape) == (lc.cap, vocab.n_words)
-    assert sys_._gauge_events == [] and sys_._health_history == []
+    assert sys_.records.gauge_events == [] and sys_._health_history == []
     assert sys_.track_health_typical is None
     sys_.reset()
     assert sys_.loopclosing.vocab is None
@@ -211,7 +215,7 @@ def test_default_settings_construct_with_loop_closing(monkeypatch):
     lc = sys_.loopclosing
     assert lc is not None and lc.device == torch.device("cpu")
     assert sys_._engine.loop_desc and lc.cap == Settings().max_keyframes_db
-    assert sys_.stats["warnings"] == [] and sys_._gauge_events == []
+    assert sys_.stats["warnings"] == [] and sys_.records.gauge_events == []
     sys_.finish()                                  # nothing deferred
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match='device="cpu"'):

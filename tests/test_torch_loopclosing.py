@@ -688,16 +688,19 @@ def _systems(sj, sc, events, health):
                              (st, interop.map_state(m_j),
                               interop.feat_state(feat_j), _t(sc["T_est"]))):
         sys_.map, sys_.feat, sys_.T_cw = m, feat, T
-        sys_.keyframes = [dict(gid=g, frame_id=g, timestamp=0.1 * g,
-                               T_cw=T_g.copy())
-                          for g, T_g in enumerate(sc["recs"])]
-        sys_._rec_by_gid = {r["gid"]: r for r in sys_.keyframes}
-        sys_.kf_rel_edges = [
-            (g - 1, g, se3_t.compose_np(sc["recs"][g],
-                                        se3_t.inverse_np(sc["recs"][g - 1])))
-            for g in range(1, len(sc["recs"]))]
-        sys_._gauge_events = [C.copy() for C in events]
         sys_.track_health, sys_.track_health_typical = health
+    # the same records in both: the JAX System's fields, the port's
+    # KeyframeRecords
+    for g, T_g in enumerate(sc["recs"]):
+        st.records.add(g, 0.1 * g, T_g.copy(), g)
+    for C in events:
+        st.records.add_gauge_event(C.copy())
+    sj.keyframes = [dict(gid=g, frame_id=g, timestamp=0.1 * g,
+                         T_cw=T_g.copy()) for g, T_g in enumerate(sc["recs"])]
+    sj._rec_by_gid = {r["gid"]: r for r in sj.keyframes}
+    sj.kf_rel_edges = [(a, b, Z.copy())
+                       for a, b, Z in st.records.odometry_edges]
+    sj._gauge_events = [C.copy() for C in events]
     sj._kf_cache = None
     return st, feat_j
 
@@ -769,11 +772,11 @@ def test_complete_loop_parity(jax_pair, case):
     _same_map(st.map, sj.map, PGO_TOL)
     _same_feat(st.feat, sj.feat)
     _same(st.T_cw, sj.T_cw, PGO_TOL)
-    for r_t, r_j in zip(st.keyframes, sj.keyframes):
+    for r_t, r_j in zip(st.records.keyframes, sj.keyframes):
         np.testing.assert_allclose(r_t["T_cw"], r_j["T_cw"], atol=PGO_TOL,
                                    rtol=0, err_msg=str(r_t["gid"]))
     _same(lc_t.lm_pos, lc_j.lm_pos, PGO_TOL)
-    for C_t, C_j in zip(st._gauge_events, sj._gauge_events):
+    for C_t, C_j in zip(st.records.gauge_events, sj._gauge_events):
         np.testing.assert_allclose(C_t, C_j, atol=PGO_TOL, rtol=0)
     if not events:       # the correction moved the pose onto the truth
         assert np.linalg.norm(se3_t.inverse_np(st.T_cw.numpy())[:, 3]

@@ -92,9 +92,9 @@ def test_insert_keyframe_add_landmarks_ba_problem_match(fill):
     mt = interop.map_state(m)
     args = (T_new, f["lm_slot"], f["uv_l"], f["uv_r"], f["has_r"], f["valid"])
     mj2, slot_j, gid_j = map_j.insert_keyframe(mj, *[jnp.asarray(a) for a in args])
-    mt2, slot_t, gid_t = map_t.insert_keyframe(mt, *[torch.from_numpy(a)
-                                                     for a in args])
-    assert (slot_t, gid_t) == (int(slot_j), int(gid_j))
+    mt2, slot_t, gid_t = map_t.insert_keyframe_device(
+        mt, *[torch.from_numpy(a) for a in args])
+    assert (int(slot_t), int(gid_t)) == (int(slot_j), int(gid_j))
     _assert_maps_equal(mt2, mj2)
     # the input map is left untouched (a rejected init drops the result)
     _assert_maps_equal(mt, mj)
@@ -177,9 +177,10 @@ def test_keyframe_step_from_jax_state_matches(jax_state):
     budget = sj.s.n_new_features
     feat_j, m_j, slot_j, gid_j, nc_j, ns_j = sj.frontend.keyframe_step(
         pyr_l, pyr_r, sj.feat, sj.T_cw, sj.map, budget=budget)
-    feat_t, m_t, slot_t, gid_t, nc_t, ns_t = front_t._keyframe_step(
+    feat_t, m_t, *counts = front_t._keyframe_core(
         _pyr_t(pyr_l), _pyr_t(pyr_r), interop.feat_state(sj.feat),
         interop.pose(sj.T_cw), interop.map_state(sj.map), budget=budget)
+    slot_t, gid_t, nc_t, ns_t = map(int, counts)
     assert (slot_t, gid_t, nc_t, ns_t) == (int(slot_j), int(gid_j),
                                            int(nc_j), int(ns_j))
     assert nc_t > 20

@@ -145,6 +145,11 @@ def test_system_through_a_two_rank_mesh(mesh_runs, path):
     assert rank1[i] == st["n_ba"]
     assert {k: v for k, v in st.items() if k != "n_dist_ba"} == \
         {k: v for k, v in want["stats"].items() if k != "n_dist_ba"}
+    # a mesh BA runs the fixed trip: 5 x 10 LM steps, no round skipped
+    assert got["ba_work"] == [(50, 0)] * st["n_ba"]
+    if path == "run_chunk":
+        assert got["counted"] == {"ba.lm_steps_run": 50.0 * st["n_ba"],
+                                  "ba.rounds_skipped": 0.0}
 
 
 @pytest.fixture(scope="module")

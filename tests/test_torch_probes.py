@@ -75,7 +75,7 @@ def _state(sys_):
                 for k, v in sys_.feat._asdict().items()})
     out["T_cw"] = sys_.T_cw.numpy().copy()
     out["keyframes"] = np.array([[k["gid"], k["frame_id"]]
-                                 for k in sys_.keyframes])
+                                 for k in sys_.records.keyframes])
     for k in ("desc_db", "desc_valid", "lm_pos", "db_gid_dev"):
         out[f"lc.{k}"] = getattr(lc, k).numpy().copy()
     out["lc.n"] = np.array(lc.n)
@@ -102,8 +102,9 @@ def test_snapshot_and_restore_give_one_state(cut):
             assert set(now) == set(before)
             for k in before:
                 np.testing.assert_array_equal(now[k], before[k], err_msg=k)
-            assert sys_._rec_by_gid[sys_.keyframes[-1]["gid"]] is \
-                sys_.keyframes[-1]           # shared records stay shared
+            recs = sys_.records
+            assert recs.by_gid[recs.keyframes[-1]["gid"]] is \
+                recs.keyframes[-1]           # shared records stay shared
             runs.append(tail.drive(sys_, L, R, 5, 10)
                         + [sys_.frame_trajectory()[1]])
     assert runs[0][:-1] == runs[1][:-1]

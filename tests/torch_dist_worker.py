@@ -105,27 +105,41 @@ def mode_ba(job, mesh):
 
 def run_system(settings, L, R, chunk, mesh=None, device="cpu") -> dict:
     """One System (loop closing off) over the frames: through run_step
-    (chunk 0) or run_chunk in chunks of `chunk`. Returns its statuses,
-    frame positions, keyframe gids and stats."""
+    (chunk 0) or run_chunk in chunks of `chunk`, the recorder on. Returns
+    its statuses, frame positions, keyframe gids, stats, and the LM steps
+    run and rounds skipped that each local BA counts (`engine.ba_work`)
+    and that the recorder's chunks counted."""
+    from ssvio_tpu_torch import engine
     from ssvio_tpu_torch.system import System
+    from ssvio_tpu_torch.utils import profiling
     sys_ = System(settings, enable_loop_closing=False, mesh=mesh,
                   device=device)
     status = []
-    with torch.no_grad():
-        if chunk:
-            for a in range(0, len(L), chunk):
-                sys_.run_chunk(L[a:a + chunk], R[a:a + chunk],
-                               [0.1 * i for i in range(a, a + chunk)])
-        else:
-            for i in range(len(L)):
-                sys_.run_step(L[i], R[i], 0.1 * i)
-                status.append(sys_.status)
+    t0 = profiling.CLOCK()
+    profiling.enable()
+    try:
+        with torch.no_grad():
+            if chunk:
+                for a in range(0, len(L), chunk):
+                    sys_.run_chunk(L[a:a + chunk], R[a:a + chunk],
+                                   [0.1 * i for i in range(a, a + chunk)])
+            else:
+                for i in range(len(L)):
+                    sys_.run_step(L[i], R[i], 0.1 * i)
+                    status.append(sys_.status)
+    finally:
+        profiling.enable(False)
     sys_.close()
     _, est = sys_.frame_trajectory()
+    eng = sys_._engine
     return dict(status=status, pos=est[:, :, 3],
-                kf_gids=[k["gid"] for k in sys_.keyframes],
+                kf_gids=sys_.records.gids(),
                 stats={k: v for k, v in sys_.stats.items()
-                       if k != "warnings"})
+                       if k != "warnings"},
+                ba_work=[engine.ba_work(eng.ba_mode, int(t[0]))
+                         for t in eng.ba_trips],
+                counted={n: sum(c.value for c in profiling.TRACE.counts(n, t0))
+                         for n in ("ba.lm_steps_run", "ba.rounds_skipped")})
 
 
 def mode_system(job, mesh):
